@@ -1,0 +1,52 @@
+"""Core: the paper's profiling -> modeling -> prediction pipeline.
+
+Paper: "On Modeling Dependency between MapReduce Configuration Parameters
+and Total Execution Time" (Rizvandi et al., 2012).  ``costmodel`` and
+``mesh_factorizations`` of the reference belong to the LM stack's slice.
+"""
+
+from repro_torch.core.features import (
+    FeatureSpec,
+    design_matrix,
+    fit_feature_spec,
+    grid,
+)
+from repro_torch.core.profiler import (
+    ProfileResult,
+    profile_categorical,
+    profile_experiments,
+    timeit,
+)
+from repro_torch.core.predictor import ModelDatabase
+from repro_torch.core.regression import (
+    RegressionModel,
+    fit,
+    prediction_error_stats,
+)
+from repro_torch.core.tuner import (
+    CategoricalTuneResult,
+    TuneResult,
+    tune,
+    tune_categorical,
+    validate,
+)
+
+__all__ = [
+    "FeatureSpec",
+    "design_matrix",
+    "fit_feature_spec",
+    "grid",
+    "ProfileResult",
+    "profile_categorical",
+    "profile_experiments",
+    "timeit",
+    "ModelDatabase",
+    "RegressionModel",
+    "fit",
+    "prediction_error_stats",
+    "CategoricalTuneResult",
+    "TuneResult",
+    "tune",
+    "tune_categorical",
+    "validate",
+]

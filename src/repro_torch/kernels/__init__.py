@@ -1,0 +1,15 @@
+"""Hand-written Hopper kernels of the port.
+
+Each kernel has a subpackage with ``ops.py`` (the wrapper: validates,
+launches on the current stream, counts launches) and ``ref.py`` (its plain
+PyTorch version, which the wrapper takes for CPU tensors and the tests and
+``chip_smoke.py`` hold the kernel against).  The CUDA sources live in
+``src/repro_torch/csrc/`` and ``_build.py`` compiles them at first use.
+
+* ``segment_reduce`` replaces ``repro/kernels/segment_reduce`` (Pallas);
+* ``local_reduce``   replaces ``repro/kernels/local_reduce`` (Pallas).
+"""
+
+from repro_torch.kernels import local_reduce, segment_reduce  # noqa: F401
+
+__all__ = ["local_reduce", "segment_reduce"]

@@ -1,0 +1,199 @@
+"""Shared MapReduce phase primitives (counterpart of ``repro.mapreduce.phases``).
+
+* :func:`task_setup`         — fixed per-task startup compute (JVM analogue);
+* :func:`hash_to_reducer`    — Knuth multiplicative key hashing in uint32;
+* :func:`segment_sum_sorted` — sorted equal-key aggregation (sum/max/first);
+* :func:`run_map_task`       — setup + ``map_fn`` + local spill sort;
+* :func:`combine_rows`       — map-side combine of spill-sorted task rows;
+* :func:`bucket_scatter`     — capacity-bounded partition scatter that
+  counts its overflow in ``dropped``.
+
+Every function works on a batch of tasks written out as the leading
+dimension, where the reference ``vmap``s a one-task function.  Values are
+int32 throughout and equal the reference's bit for bit.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+PAD_KEY = 2**31 - 1  # int32 max: sorts to the end
+INT32_MIN = -(2**31)
+
+#: bytes per (key, value) pair moving between phases: two int32s.
+PAIR_BYTES = 8
+
+#: reduce ops safe to pre-aggregate map-side (commutative + associative);
+#: ``first`` depends on delivery order, so the plan rejects it with the
+#: combiner on.
+COMBINABLE_OPS = ("sum", "max")
+
+_KNUTH = 2654435761
+_MASK32 = 0xFFFFFFFF
+
+
+def task_setup(dim: int, rounds: int, seed_val: torch.Tensor) -> torch.Tensor:
+    """Fixed per-task startup compute for a batch of tasks.
+
+    seed_val: (B,) integer tensor, one seed per task.  Runs a short chain of
+    batched (dim x dim) matmuls seeded by the task's data, so the work
+    cannot be skipped; the (B,) float32 result is about 1e-17 and casts to
+    int32 0, so adding it keeps the values exact.
+    """
+    dev = seed_val.device
+    x = torch.full(
+        (seed_val.shape[0], dim, dim), 1e-3, dtype=torch.float32, device=dev
+    ) + seed_val.to(torch.float32)[:, None, None] * 1e-9
+    w = torch.eye(dim, dtype=torch.float32, device=dev) * 0.999
+    for _ in range(rounds):
+        x = torch.tanh(torch.matmul(x, w))
+    return x.sum(dim=(1, 2)) * 1e-20
+
+
+def hash_to_reducer(keys: torch.Tensor, num_reducers: int) -> torch.Tensor:
+    """Knuth multiplicative hash in uint32, then mod R (int32 result).
+
+    Computed in int64 on the key's low 32 bits, so negative keys wrap as
+    ``astype(uint32)`` wraps them.  The product is split into 16-bit halves
+    so that it never leaves int64's range.
+    """
+    k = keys.to(torch.int64) & _MASK32
+    lo, hi = k & 0xFFFF, k >> 16
+    h = (lo * _KNUTH + (((hi * _KNUTH) & 0xFFFF) << 16)) & _MASK32
+    h = h ^ (h >> 16)
+    return (h % num_reducers).to(torch.int32)
+
+
+def run_heads(keys: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """First occurrence of each equal-key run of (N, C) sorted rows."""
+    first = valid.clone()
+    first[:, 1:] &= keys[:, 1:] != keys[:, :-1]
+    return first
+
+
+def segment_ids(first: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Run index of every live slot; dead slots go to the last column."""
+    C = first.shape[1]
+    seg = torch.cumsum(first, dim=1, dtype=torch.int64) - 1
+    return torch.where(valid, seg, C - 1)
+
+
+def segment_sum_sorted(keys, values, valid, reduce_op: str = "sum"):
+    """Aggregate values of equal adjacent keys in (N, C) key-sorted rows.
+
+    Returns (out_keys, out_vals, first): each run's aggregate at its first
+    occurrence, (PAD_KEY, 0) elsewhere.  Aggregation is a scatter into a
+    flat (N*C,) buffer with ``index_add_`` / ``index_reduce_``.
+    """
+    N, C = keys.shape
+    first = run_heads(keys, valid)
+    seg = segment_ids(first, valid)
+    flat = (seg + torch.arange(N, device=keys.device)[:, None] * C).reshape(-1)
+    if reduce_op == "sum":
+        agg = torch.zeros(N * C, dtype=values.dtype, device=keys.device)
+        agg.index_add_(0, flat, torch.where(valid, values, 0).reshape(-1))
+    elif reduce_op == "max":
+        agg = torch.full(
+            (N * C,), INT32_MIN, dtype=values.dtype, device=keys.device
+        )
+        agg.index_reduce_(
+            0, flat, torch.where(valid, values, INT32_MIN).reshape(-1),
+            "amax",
+        )
+    elif reduce_op == "first":
+        # The stable sorts upstream put each run's earliest delivered value
+        # at its first-occurrence slot, so the aggregate is that value.
+        agg = torch.zeros(N * C, dtype=values.dtype, device=keys.device)
+        agg.index_add_(0, flat, torch.where(first, values, 0).reshape(-1))
+    else:
+        raise ValueError(reduce_op)
+    out_keys = torch.where(first, keys, PAD_KEY)
+    out_vals = torch.where(first, agg[flat].reshape(N, C), 0)
+    return out_keys, out_vals, first
+
+
+def run_map_task(app, cfg, tokens, valid):
+    """A batch of map tasks: startup + ``map_fn`` + local spill sort.
+
+    tokens/valid: (W, S).  Returns keys/values/pvalid of shape (W, P).
+    """
+    setup = task_setup(cfg.setup_dim, cfg.setup_rounds, tokens.sum(dim=1))
+    keys, values, pvalid = app.map_fn(tokens, valid)
+    # Local spill sort; stable like jnp.argsort, which ``first`` relies on.
+    _, order = torch.sort(
+        torch.where(pvalid, keys, PAD_KEY), dim=1, stable=True
+    )
+    keys = keys.gather(1, order)
+    values = values.gather(1, order)
+    pvalid = pvalid.gather(1, order)
+    values = values + setup.to(values.dtype)[:, None]  # keep setup live
+    return keys, values, pvalid
+
+
+def partition_capacity(n_pairs: int, n_buckets: int, factor: float) -> int:
+    """Capacity per partition: uniform share x safety factor, clamped."""
+    cap = max(1, int(math.ceil(n_pairs / max(n_buckets, 1) * factor)))
+    return min(cap, n_pairs)
+
+
+def combine_capacity(n_pairs: int, key_space: int) -> int:
+    """Static per-task combined-row width: at most ``min(n_pairs,
+    key_space)`` distinct keys, so truncating there is lossless."""
+    return max(1, min(int(n_pairs), int(key_space)))
+
+
+def combine_rows(backend, keys, values, pvalid, reduce_op: str, cap: int):
+    """Map-side combine over (N, P) spill-sorted task rows.
+
+    Dead slots are masked to (PAD_KEY, 0) first; the backend's ``combine``
+    front-packs each row's aggregates in ascending key order, and the
+    ``[:cap]`` truncation then drops only dead tail slots.  Returns
+    (ck, cv, cvalid) of shape (N, cap).
+    """
+    km = torch.where(pvalid, keys, PAD_KEY)
+    vm = torch.where(pvalid, values, 0)
+    ck, cv = backend.combine(km, vm, reduce_op)
+    ck, cv = ck[:, :cap], cv[:, :cap]
+    return ck, cv, ck != PAD_KEY
+
+
+def bucket_scatter(ids, n_buckets, n_rows, cap, arrays, fills):
+    """Capacity-bounded scatter into fixed (n_rows, cap) partitions.
+
+    ids: (n,) integer, **sorted ascending**; ids >= n_buckets mark invalid
+    entries.  Each of the parallel (n,) ``arrays`` is scattered to
+    ``out[id, position-within-bucket]`` over a buffer filled with its
+    ``fills`` entry.  Returns (list of (n_rows, cap) tensors, dropped),
+    ``dropped`` counting valid entries lost to capacity overflow.
+    """
+    dev = ids.device
+    n = ids.shape[0]
+    ids = ids.to(torch.int64)
+    start = torch.searchsorted(
+        ids, torch.arange(n_buckets + 1, device=dev), side="left"
+    )
+    pos = torch.arange(n, device=dev) - start[ids.clamp(0, n_buckets)]
+    valid = ids < n_buckets
+    dropped = ((pos >= cap) & valid).sum().to(torch.int32)
+    # Entries that land nowhere go to a spare row n_rows, cut off below: the
+    # reference's ``mode="drop"`` without the host sync a boolean mask costs.
+    row = torch.where(valid & (pos < cap), ids, n_rows)
+    col = pos.clamp(0, cap - 1)
+    outs = []
+    for arr, fill in zip(arrays, fills):
+        buf = torch.full((n_rows + 1, cap), fill, dtype=arr.dtype, device=dev)
+        buf[row, col] = arr
+        outs.append(buf[:n_rows])
+    return outs, dropped
+
+
+def _masked_setup(cfg, keys_block, out_keys, out_vals):
+    """Per-task startup for a reduce block, added only to live output slots.
+
+    keys_block: (N, cap); out_keys/out_vals: backend output (N, cap).
+    """
+    setup = task_setup(cfg.setup_dim, cfg.setup_rounds, keys_block.sum(dim=1))
+    live = out_keys != PAD_KEY
+    return out_vals + torch.where(live, setup[:, None], 0.0).to(out_vals.dtype)
