@@ -16,11 +16,28 @@ Phases, one or more printed lines each:
    WordCount's combiner run equal to the run without it;
 4. loop: the paper's profile -> fit -> predict loop per application, 20
    training and 8 held-out (M, R) settings, reduce backend ``"cuda"``;
-5. launches: the kernel launch counts of phases 3-4 (the main path), which
-   must be exactly one ``segment_reduce`` per reduce wave and one
-   ``local_reduce`` per combiner job;
+5. launches: the kernel launch counts of phases 3-4 (the MapReduce main
+   path), which must be exactly one ``segment_reduce`` per reduce wave and
+   one ``local_reduce`` per combiner job;
 6. breakdown: where one full-size job's time goes, phase by phase and (under
-   ``torch.profiler``) kernel by kernel, with the device's busy share.
+   ``torch.profiler``) kernel by kernel, with the device's busy share;
+7. attention: the two attention kernels against their plain versions on
+   the card at the qwen3-0.6b serving shapes (bfloat16 and float32) and on
+   edge cases (garbage past kv_len, kv_len past the cache, a ragged
+   sequence, non-causal with Sk > Sq), elementwise and row by row relative
+   to each row's scale, with proof at each serving shape that the check
+   rejects an all-zero output and a dropped key split or lost key tile;
+   with their time, the plain version's,
+   ``scaled_dot_product_attention``'s and the bound;
+8. serve: the LM serving path (the second main path) at the full width of
+   qwen3-0.6b: latency profile, fit and SLO batch pick, 32 requests, the
+   prediction at unprofiled batches 3 and 6 against a measurement, a batch
+   of 2048-token prompts, decode-vs-forward logits, the 28-layer logits of
+   the kernel path against the same path with the kernels' plain versions
+   (elementwise) and against the plain ``use_flash=False`` path, 2048-token
+   scoring logits and loss, attention launch counts equal to 28 per
+   decode_step and forward call the phase drives, and one decode step's
+   device time by kernel.
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -30,6 +47,8 @@ outside the repository.  Nothing here imports JAX or the reference package.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -39,6 +58,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -47,6 +67,7 @@ TOKENS = 1 << 26
 #: the paper takes the mean of 5 runs per setting
 REPEATS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, same sheet
 #: (M, R, W) settings of the engine phase; 7 % 2 and 37 % 4 leave partial
 #: final waves, which the steppers must clamp like the reference
 ENGINE_CONFIGS = ((20, 5, 1), (7, 3, 2), (37, 40, 4))
@@ -371,6 +392,477 @@ def phase_breakdown(apps: dict) -> None:
         log("breakdown", f"  {us / 1e3:8.3f} ms  {kname[:100]}")
 
 
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+#: per (query, head) row: the norm of the difference over the norm of the
+#: plain version's row.  A row that averages thousands of keys is small
+#: (|out| about 0.01 at 32k keys), so the elementwise 5e-2 alone would pass
+#: an all-zero output; this holds each row to its own scale.
+ATTN_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+QWEN = dict(Hq=16, n_kv=8, hd=128)  # qwen3-0.6b attention geometry
+
+
+def attention_bound(B, Sq, Hq, n_kv, hd, Sk, visible, itemsize=2):
+    """(bound ms, bound_by): the larger of the operations the inputs need
+    (QK^T and PV over the visible (query, key) pairs per head, at the bf16
+    tensor-core peak) and the bytes (q read, out written, the keys read
+    once, K and V) at the HBM rate."""
+    flops = 4 * B * Hq * hd * visible
+    nbytes = (2 * B * Sq * Hq * hd + 2 * B * Sk * n_kv * hd) * itemsize
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def attn_inputs(seed, dtype, *shapes):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda").to(dtype) for s in shapes]
+
+
+def attention_errs(got, want) -> tuple[float, float]:
+    """(max abs err, max per-row relative err) of ``got`` against ``want``."""
+    diff = got.float() - want.float()
+    rows = diff.norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)
+    return float(diff.abs().max()), float(rows.max())
+
+
+def check_attention(name, got, want, dtype, what) -> tuple[float, float]:
+    """Holds a kernel's output against its plain version: elementwise to
+    ATTN_TOL and row by row to ATTN_ROW_TOL; returns both errors."""
+    torch.cuda.synchronize()
+    err, row_err = attention_errs(got, want)
+    tol = ATTN_TOL[dtype]
+    if got.dtype != dtype or not torch.isfinite(got).all() or not torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol) or not row_err <= ATTN_ROW_TOL[dtype]:
+        raise AssertionError(f"{name} differs from its plain version on {what} "
+                             f"({dtype}): max abs err {err}, row err {row_err}")
+    return err, row_err
+
+
+def check_rejects(name, case, want, wrongs: dict) -> str:
+    """Each wrong output must fail ``check_attention``: the check can tell
+    a broken kernel at this shape.  Returns their row errors."""
+    said = []
+    for what, bad in wrongs.items():
+        try:
+            check_attention(name, bad, want, want.dtype, what)
+        except AssertionError:
+            said.append(f"{what}: row err {attention_errs(bad, want)[1]:.3f}")
+            continue
+        raise AssertionError(f"the {name} check passes a wrong output ({what}) on {case}")
+    return "; ".join(said)
+
+
+def wrong_outputs(q, k, v, ref, want, n_visible: int) -> dict:
+    """Outputs of plausible kernel faults, from the plain version: all
+    zeros; at decode (one query) one key split dropped from the combine;
+    else the values of one 64-key tile lost for the last rows."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_ref,
+        split_plan,
+        target_blocks,
+    )
+
+    wrongs = {"all-zero output": torch.zeros_like(want)}
+    B, Sq, Hq, _ = q.shape
+    if Sq == 1:
+        n, keys = split_plan(B, Sq, Hq, k.shape[2], k.shape[1], n_visible,
+                             target_blocks(q.device.index))
+        a = n // 2 * keys
+        keep = torch.cat([torch.arange(a), torch.arange(a + keys, n_visible)]).to(k.device)
+        wrongs[f"split {n // 2} of {n} dropped"] = decode_attention_ref(
+            q, k[:, keep], v[:, keep], n_visible - keys)
+    else:
+        lost = v.clone()
+        lost[:, n_visible - 128:n_visible - 64] = 0
+        wrongs["one tile of values lost"] = ref(q, k, lost)
+    return wrongs
+
+
+def phase_attention() -> dict:
+    """flash_attention and decode_attention against their plain versions;
+    returns the kernels-line numbers of the serving shapes (bfloat16)."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full float32
+    Hq, n_kv, hd = QWEN["Hq"], QWEN["n_kv"], QWEN["hd"]
+    errs = {"decode_attention": 0.0, "flash_attention": 0.0}
+
+    # Edge cases, both dtypes.
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attn_inputs(1, dtype, (1, 1, 2, 32), (1, 128, 2, 32), (1, 128, 2, 32))
+        clean = decode_attention(q, k, v, 50)
+        k[:, 50:], v[:, 50:] = 1e4, -1e4  # poison the unwritten slots
+        got = decode_attention(q, k, v, 50)
+        torch.cuda.synchronize()
+        if not torch.equal(got, clean):
+            raise AssertionError("decode_attention read cache slots past kv_len")
+        check_attention("decode_attention", got, decode_attention_ref(q, k, v, 50), dtype,
+                        "garbage past kv_len")
+        q, k, v = attn_inputs(2, dtype, (2, 4, Hq, hd), (2, 100, n_kv, hd), (2, 100, n_kv, hd))
+        e1, _ = check_attention("decode_attention", decode_attention(q, k, v, 102),
+                                decode_attention_ref(q, k, v, 102), dtype,
+                                "kv_len 102 > S_max 100")
+        q, k, v = attn_inputs(3, dtype, (2, 100, 4, 32), (2, 100, 1, 32), (2, 100, 1, 32))
+        e2, _ = check_attention("flash_attention", flash_attention(q, k, v, causal=True),
+                                flash_attention_ref(q, k, v, causal=True), dtype, "ragged S 100")
+        q, k, v = attn_inputs(4, dtype, (1, 64, 2, 80), (1, 192, 2, 80), (1, 192, 2, 80))
+        e3, _ = check_attention("flash_attention", flash_attention(q, k, v, causal=False),
+                                flash_attention_ref(q, k, v, causal=False), dtype,
+                                "non-causal Sk 192 > Sq 64")
+        log("attention", f"edge cases ({dtype}): garbage past kv_len ignored bit for bit; "
+            f"kv_len > S_max err {e1:.2e}; ragged S=100 err {e2:.2e}; non-causal "
+            f"Sk > Sq err {e3:.2e} (tolerance {ATTN_TOL[dtype]})")
+        if dtype == torch.bfloat16:
+            errs["decode_attention"] = max(errs["decode_attention"], e1)
+            errs["flash_attention"] = max(errs["flash_attention"], e2, e3)
+
+    # The serving shapes: (name, case, inputs, visible keys of the last
+    # query, kernel, plain, library, bound).
+    S_dec, S_pre, P_max, S_fl = 32768, 2048, 4096, 8192
+    cases = [
+        ("decode_attention", f"decode B=8 Sq=1 kv_len=S_max={S_dec}",
+         ((8, 1, Hq, hd), (8, S_dec, n_kv, hd)), S_dec,
+         lambda q, k, v: decode_attention(q, k, v, S_dec),
+         lambda q, k, v: decode_attention_ref(q, k, v, S_dec),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True),
+         attention_bound(8, 1, Hq, n_kv, hd, S_dec, S_dec)),
+        ("decode_attention", f"prefill B=8 Sq=kv_len={S_pre} S_max={P_max}",
+         ((8, S_pre, Hq, hd), (8, P_max, n_kv, hd)), S_pre,
+         lambda q, k, v: decode_attention(q, k, v, S_pre),
+         lambda q, k, v: decode_attention_ref(q, k, v, S_pre),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k[:, :S_pre].transpose(1, 2), v[:, :S_pre].transpose(1, 2),
+             is_causal=True, enable_gqa=True),
+         attention_bound(8, S_pre, Hq, n_kv, hd, S_pre, S_pre * (S_pre + 1) // 2)),
+        ("flash_attention", f"causal B=1 S={S_fl}",
+         ((1, S_fl, Hq, hd), (1, S_fl, n_kv, hd)), S_fl,
+         lambda q, k, v: flash_attention(q, k, v, causal=True),
+         lambda q, k, v: flash_attention_ref(q, k, v, causal=True),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+             enable_gqa=True),
+         attention_bound(1, S_fl, Hq, n_kv, hd, S_fl, S_fl * (S_fl + 1) // 2)),
+    ]
+    report = {}
+    for i, (name, case, (qs, ks), n_visible, kern, ref, lib,
+            (bound_ms, bound_by)) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(10 + i, dtype, qs, ks, ks)
+            want = ref(q, k, v)
+            err, row_err = check_attention(name, kern(q, k, v), want, dtype, case)
+            if dtype == torch.float32:
+                log("attention", f"{name} {case} (float32): err {err:.2e}, row err "
+                    f"{row_err:.2e} (tolerance 2e-5, rows 1e-4)")
+                del q, k, v, want
+                torch.cuda.empty_cache()
+                continue
+            rejected = check_rejects(name, case, want,
+                                     wrong_outputs(q, k, v, ref, want, n_visible))
+            log("attention", f"{name} {case} (bfloat16): the check rejects {rejected} "
+                f"(output scale {float(want.float().abs().max()):.3f})")
+            errs[name] = max(errs[name], err)
+            ms = device_ms(lambda: kern(q, k, v))
+            plain_ms = device_ms(lambda: ref(q, k, v), iters=3, warmup=1)
+            lib_out = lib(q, k, v).transpose(1, 2)
+            lib_err = float((lib_out.float() - want.float()).abs().max())
+            library_ms = device_ms(lambda: lib(q, k, v))
+            log("attention", f"{name} {case} (bfloat16): err {err:.2e}, row err "
+                f"{row_err:.2e} (tolerance 5e-2, rows 1e-2); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
+                f"(SDPA vs plain err {lib_err:.2e}), bound {bound_ms:.4f} ms "
+                f"({bound_by}; {bound_ms / ms:.0%} of it reached)")
+            if name not in report:  # the first case of each kernel goes in the line
+                report[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": library_ms,
+                                "shape": [list(qs), list(ks)]}
+            del q, k, v, want, lib_out
+            torch.cuda.empty_cache()
+    for name in report:
+        report[name]["max_abs_err"] = errs[name]
+    return report
+
+
+#: decode_step calls of one ``BatchedServer.token_latency`` at its default
+#: repeats: a 4-token warm-up serve, then two serves of 8 tokens; a serve
+#: of n new tokens is one prefill and n - 1 decode steps (launch/serve.py)
+TOKEN_LATENCY_STEPS = 4 + 2 * 8
+
+
+@contextlib.contextmanager
+def attention_swapped(decode_fn, flash_fn):
+    """Runs the kernel path (``use_flash=True``) with ``decode_fn`` and
+    ``flash_fn`` in place of the two attention kernels."""
+    from repro_torch.models import attention
+
+    saved = attention.decode_attention, attention.flash_attention
+    attention.decode_attention, attention.flash_attention = decode_fn, flash_fn
+    try:
+        yield
+    finally:
+        attention.decode_attention, attention.flash_attention = saved
+
+
+def held_against_plain(stats: dict):
+    """(decode_fn, flash_fn) for ``attention_swapped``: each launches its
+    kernel, holds the output against the plain version on the same inputs
+    (``check_attention``) and keeps (calls, max abs err, max row err) in
+    ``stats``."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    def held(name, kern, ref):
+        def call(*args, **kwargs):
+            out = kern(*args, **kwargs)
+            err, row_err = check_attention(name, out, ref(*args, **kwargs), out.dtype,
+                                           "the model's activations")
+            n, e, r = stats.get(name, (0, 0.0, 0.0))
+            stats[name] = (n + 1, max(e, err), max(r, row_err))
+            return out
+        return call
+
+    return (held("decode_attention", decode_attention, decode_attention_ref),
+            held("flash_attention", flash_attention, flash_attention_ref))
+
+
+def teacher_forced(model, cfg, tokens, n_prompt: int):
+    """Kernel-path logits at positions n_prompt - 1 .. S - 1: a prefill of
+    n_prompt tokens through decode_step, then one decode step per token,
+    with a float32 cache.  Makes 1 + S - n_prompt decode_step calls."""
+    from repro_torch.models import transformer as tf
+
+    B, S = tokens.shape
+    state = tf.init_decode_state(cfg, B, S, cache_dtype=torch.float32,
+                                 device=tokens.device)
+    logits, state = tf.decode_step(model, cfg, state, {"tokens": tokens[:, :n_prompt]},
+                                   use_flash=True)
+    out = [logits[:, -1]]
+    for i in range(n_prompt, S):
+        logits, state = tf.decode_step(model, cfg, state, {"tokens": tokens[:, i:i + 1]},
+                                       use_flash=True)
+        out.append(logits[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def logits_err(a, b, V: int) -> tuple[float, float]:
+    """(max abs err, relative norm of the difference) over the vocabulary."""
+    a, b = a[..., :V].float(), b[..., :V].float()
+    return float((a - b).abs().max()), float((a - b).norm() / b.norm())
+
+
+def phase_serve() -> dict:
+    """The LM serving path at full width; returns the attention launches it
+    made, counted from zero at its start and held against the calls it
+    drives: 28 per decode_step call and per forward call of the kernel path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import StepConfig, build_eval_step
+
+    cfg = get_config("qwen3-0.6b")
+    V = cfg.vocab_size
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    steps = forwards = 0  # decode_step and forward calls of the kernel path
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, vocab "
+        f"{cfg.vocab_size}; {n_bytes / 1e9:.3f} GB of bf16 weights drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    # launch/serve.py:main: profile, fit, pick the SLO batch, serve 32 requests.
+    server = BatchedServer(cfg, model)
+    latency = server.profile_latency_model()
+    steps += len(server.profiled) * TOKEN_LATENCY_STEPS
+    for b, t in server.profiled.items():
+        log("serve", f"profile batch {b}: {t * 1e3:.3f} ms/token")
+    batch = server.pick_batch_for_slo(latency, 50e-3)
+    log("serve", f"fit: train MAPE {latency.train_mape:.2f}%, R^2 {latency.r2:.4f}; "
+        f"SLO 50 ms/token -> predicted max batch {batch}")
+    done, g = 0, torch.Generator(device="cuda")
+    while done < 32:
+        b = min(batch, 32 - done)
+        prompts = torch.randint(0, cfg.vocab_size, (b, 8), generator=g.manual_seed(done),
+                                device="cuda")
+        toks, per_tok = server.serve(prompts, 16)
+        steps += 16
+        if toks.shape != (b, 16) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"served tokens out of range: {tuple(toks.shape)}")
+        done += b
+        log("serve", f"served {b} requests of 8-token prompts, 16 new tokens: "
+            f"{per_tok * 1e3:.3f} ms/token, prefill {server.last_prefill_s * 1e3:.2f} ms "
+            f"({done}/32 done)")
+
+    # The model at batches it was not profiled at.
+    pred = latency.predict(np.asarray([[3.0], [6.0]]), device="cuda").cpu().numpy()
+    for b, p in zip((3, 6), pred):
+        m = server.token_latency(b)
+        steps += TOKEN_LATENCY_STEPS
+        log("serve", f"batch {b}: predicted {p * 1e3:.3f} ms/token, measured "
+            f"{m * 1e3:.3f} ms/token ({(p - m) / m:+.1%})")
+
+    # One batch of 8 long prompts.
+    long_server = BatchedServer(cfg, model, max_len=4096)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 2048), generator=g.manual_seed(7),
+                            device="cuda")
+    long_server.serve(prompts[:, :64], 4)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    toks, per_tok = long_server.serve(prompts, 128)
+    steps += 4 + 128
+    log("serve", f"8 requests of 2048-token prompts, max_len 4096 (KV cache "
+        f"{8 * 4096 * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 / 1e9:.2f}"
+        f" GB), 128 new tokens: prefill {long_server.last_prefill_s * 1e3:.1f} ms "
+        f"({8 * 2048 / long_server.last_prefill_s:.0f} tokens/s), decode "
+        f"{per_tok * 1e3:.3f} ms/token; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if toks.shape != (8, 128):
+        raise AssertionError(f"long-prompt batch returned {tuple(toks.shape)}")
+    del long_server
+    torch.cuda.empty_cache()
+
+    # The kernel path on a 24-token prompt: forward, and prefill + decode
+    # steps through decode_step, every kernel call held against its plain
+    # version on the same inputs.  Then the 28-layer logits against the same
+    # path with the plain versions (float32 scores and p, as the kernels);
+    # against the plain versions with the softmax scale moved by 2^-20, the
+    # floor to which the bf16 model amplifies any sub-ulp difference; and
+    # against the plain path (use_flash=False: _sdpa rounds the scores and p
+    # to bf16).
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    plain_versions = (decode_attention_ref, flash_attention_ref)
+    nudged = (decode_attention_ref, functools.partial(
+        flash_attention_ref, sm_scale=(1 + 2**-20) * cfg.resolved_head_dim**-0.5))
+    held: dict = {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device="cuda")
+    with attention_swapped(*held_against_plain(held)):
+        full, _ = tf.forward(model, cfg, {"tokens": tokens}, use_flash=True)
+        dec = teacher_forced(model, cfg, tokens, 16)
+    forwards, steps = forwards + 1, steps + 9
+    with attention_swapped(*plain_versions):
+        full_ref, _ = tf.forward(model, cfg, {"tokens": tokens}, use_flash=True)
+        dec_ref = teacher_forced(model, cfg, tokens, 16)
+    with attention_swapped(*nudged):
+        floor, _ = logits_err(tf.forward(model, cfg, {"tokens": tokens}, use_flash=True)[0],
+                              full_ref, V)
+    plain, _ = tf.forward(model, cfg, {"tokens": tokens}, use_flash=False)
+    err_dec, _ = logits_err(dec, full[:, 15:], V)
+    if not torch.allclose(dec[..., :V].float(), full[:, 15:, :V].float(), rtol=2e-2, atol=2e-2):
+        raise AssertionError(f"decode_step differs from forward: max abs err {err_dec}")
+    err_full, rel_full = logits_err(full, full_ref, V)
+    err_step, _ = logits_err(dec, dec_ref, V)
+    limit = max(5e-2, 2 * floor)
+    if not (err_full <= limit and err_step <= limit and rel_full <= 5e-2):
+        raise AssertionError(f"kernel-path logits differ from the kernels' plain versions: "
+                             f"forward {err_full}, decode_step {err_step}, floor {floor}")
+    err_plain, rel_plain = logits_err(full, plain, V)
+    err_ref_plain, rel_ref_plain = logits_err(full_ref, plain, V)
+    if not rel_plain <= 5e-2:
+        raise AssertionError(f"kernel-path logits differ from the plain path: "
+                             f"relative norm {rel_plain}")
+    log("serve", f"prefill 16 + 8 decode steps (f32 cache) == forward at each position: "
+        f"max abs err {err_dec:.3e} (tolerance 2e-2), logits scale "
+        f"{float(full[..., :V].float().abs().max()):.2f}")
+    log("serve", "each attention call of that run vs its plain version on the same inputs: "
+        + "; ".join(f"{name} {n} calls, max abs err {e:.3e}, row err {r:.3e}"
+                    for name, (n, e, r) in sorted(held.items()))
+        + " (tolerance 5e-2, rows 1e-2)")
+    log("serve", f"{cfg.n_layers}-layer logits, kernels vs their plain versions on the "
+        f"same path: forward max abs err {err_full:.3e} (relative norm {rel_full:.3e}), "
+        f"prefill + decode steps {err_step:.3e}; plain versions vs themselves with the "
+        f"softmax scale moved by 2^-20: {floor:.3e} (tolerance max(5e-2, 2 x that))")
+    log("serve", f"{cfg.n_layers}-layer forward logits vs the plain path (_sdpa): kernels "
+        f"max abs err {err_plain:.3e}, relative norm {rel_plain:.3e} (tolerance 5e-2); "
+        f"the kernels' plain versions max abs err {err_ref_plain:.3e}, relative norm "
+        f"{rel_ref_plain:.3e}")
+    del full, full_ref, dec, dec_ref, plain
+
+    # Scoring at 2048 tokens: every kernel call held against its plain
+    # version, the logits against the plain versions' path (with its floor),
+    # and the eval loss against the plain path.
+    held.clear()
+    seq = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    with attention_swapped(*held_against_plain(held)):
+        got, _ = tf.forward(model, cfg, {"tokens": seq}, use_flash=True)
+    forwards += 1
+    with attention_swapped(*plain_versions):
+        want, _ = tf.forward(model, cfg, {"tokens": seq}, use_flash=True)
+    with attention_swapped(*nudged):
+        floor_long, _ = logits_err(tf.forward(model, cfg, {"tokens": seq}, use_flash=True)[0],
+                                   want, V)
+    err_long, rel_long = logits_err(got, want, V)
+    del got, want
+    n, e, r = held["flash_attention"]
+    if not (err_long <= max(5e-2, 2 * floor_long) and rel_long <= 5e-2):
+        raise AssertionError(f"2048-token logits differ from the kernels' plain versions: "
+                             f"{err_long}, floor {floor_long}")
+    log("serve", f"2048-token scoring: {n} flash_attention calls vs their plain versions "
+        f"max abs err {e:.3e}, row err {r:.3e}; logits vs the plain versions' path max abs "
+        f"err {err_long:.3e} (relative norm {rel_long:.3e}), floor {floor_long:.3e}")
+    loss = float(build_eval_step(cfg, StepConfig(use_flash=True, logits_chunk=512))(
+        model, {"tokens": seq}))
+    forwards += 1
+    ref = float(build_eval_step(cfg, StepConfig(logits_chunk=512))(model, {"tokens": seq}))
+    if not (math.isfinite(loss) and abs(loss - ref) <= 2e-2):
+        raise AssertionError(f"scoring loss {loss} vs plain {ref}")
+    log("serve", f"2048-token scoring loss {loss:.5f}, plain path {ref:.5f} "
+        f"(|diff| {abs(loss - ref):.2e}, tolerance 2e-2)")
+
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    want = {"decode_attention": cfg.n_layers * steps, "flash_attention": cfg.n_layers * forwards}
+    if launches != want:
+        raise AssertionError(f"serve launches {launches}, want {want} ({cfg.n_layers} per "
+                             f"call: {steps} decode_step, {forwards} forward calls)")
+    log("launches", f"serve path: decode_attention {launches['decode_attention']} "
+        f"({cfg.n_layers} x {steps} decode_step calls), flash_attention "
+        f"{launches['flash_attention']} ({cfg.n_layers} x {forwards} forward calls)")
+    serve_breakdown(server)
+    return launches
+
+
+def serve_breakdown(server) -> None:
+    """One batch-8 decode step at 512 cached tokens under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tf
+
+    cfg = server.cfg
+    state = tf.init_decode_state(cfg, 8, 1024, device="cuda")
+    tok = torch.zeros((8, 512), dtype=torch.int64, device="cuda")
+    _, state = server.decode(server.model, state, {"tokens": tok})
+    step = {"tokens": tok[:, :1]}
+    for _ in range(3):
+        server.decode(server.model, state, step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.decode(server.model, state, step)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            entry = by_kernel.setdefault(evt.name, [0.0, 0])
+            entry[0] += evt.time_range.elapsed_us()
+            entry[1] += 1
+    busy = sum(us for us, _ in by_kernel.values())
+    n = sum(c for _, c in by_kernel.values())
+    log("breakdown", f"qwen3-0.6b decode step, batch 8, 512 cached tokens, under "
+        f"torch.profiler: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"({busy / wall_us:.0%}), {n} kernel launches")
+    for kname, (us, c) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
+        log("breakdown", f"  {us / 1e3:8.3f} ms  {c:4d}x  {kname[:90]}")
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -394,6 +886,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}", flush=True)
     phase_build()
     report = phase_kernels()
+    report.update(phase_attention())
 
     t0 = time.perf_counter()
     apps = {name: make_app(name, TOKENS) for name in ("wordcount", "eximparse")}
@@ -418,18 +911,30 @@ def main() -> int:
     log("launches", f"main path: segment_reduce {launches['segment_reduce']} "
         f"(one per reduce wave), local_reduce {launches['local_reduce']} (one per combiner job)")
     phase_breakdown(apps)
+    del apps
+    torch.cuda.empty_cache()
+
+    # The serving main path, counted from zero inside.
+    launches.update(phase_serve())
 
     sources = {"segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce/kernel.py:28"),
                "local_reduce": ("src/repro_torch/csrc/local_reduce.cu",
-                                "src/repro/kernels/local_reduce/kernel.py:36")}
+                                "src/repro/kernels/local_reduce/kernel.py:36"),
+               "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                                    "src/repro/kernels/decode_attention/kernel.py:31"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/kernel.py:31")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
-         "bound_ms": report[name]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None, "shape": report[name]["shape"]}
+         "bound_ms": report[name]["bound_ms"],
+         "bound_by": report[name].get("bound_by", "bytes"),
+         "library_ms": report[name].get("library_ms"), "shape": report[name]["shape"]}
         for name, (src, replaces) in sources.items()]}
+    if any(k["launches"] < 1 for k in line["kernels"]):
+        raise AssertionError(f"a kernel was not launched on its main path: {launches}")
     print(json.dumps(line))
     print(f"card: {card_line()}")
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

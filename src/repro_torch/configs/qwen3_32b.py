@@ -1,0 +1,23 @@
+"""qwen3-32b [hf:Qwen/Qwen3-32B family].
+
+64L d_model=5120 64H (GQA kv=8) d_ff=25600 vocab=151936, qk_norm,
+head_dim=128.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=25600,
+    vocab_size=151936,
+    ffn_type="swiglu",
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    param_dtype="bfloat16",
+)

@@ -1,7 +1,6 @@
 """State that crosses between the reference package and the port.
 
-The system has no weights: what crosses is configuration, data and fitted
-models.
+What crosses is configuration, data, fitted models and LM weights.
 
 * :func:`job_config_from_reference` — a reference ``JobConfig`` (as
   ``dataclasses.asdict``) becomes the port's, with the reduce backend
@@ -10,13 +9,19 @@ models.
   ``RegressionModel.to_dict()`` becomes a port model that predicts the
   same values;
 * :meth:`ModelDatabase.load` reads a JSON file written by the reference
-  (the format is shared).
+  (the format is shared);
+* :func:`lm_params_from_reference` — the reference LM's ``init_params``
+  pytree, as numpy arrays, becomes the state dict of the port's
+  ``models.transformer.Transformer``.
 
 Corpora cross through their seed: ``mapreduce.datagen`` draws the same
 RNG sequence as the reference.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from repro_torch.core.predictor import ModelDatabase
 from repro_torch.core.regression import RegressionModel
@@ -26,6 +31,7 @@ __all__ = [
     "REFERENCE_BACKEND_NAMES",
     "ModelDatabase",
     "job_config_from_reference",
+    "lm_params_from_reference",
     "regression_model_from_reference",
 ]
 
@@ -53,3 +59,38 @@ def job_config_from_reference(d: dict) -> JobConfig:
 def regression_model_from_reference(d: dict) -> RegressionModel:
     """A port model from a reference ``RegressionModel.to_dict()``."""
     return RegressionModel.from_dict(d)
+
+
+def lm_params_from_reference(tree: dict) -> dict:
+    """State dict of the port's ``Transformer`` from a reference params pytree.
+
+    The reference stacks each in-period position's parameters over repeats
+    (``blocks/pos{p}/...`` with leading axis ``n_rep``), so layer
+    ``i = rep * P + p``.  Leaves may be numpy or anything ``np.asarray``
+    takes; dtypes are kept (bfloat16 through float32).
+    """
+
+    def tensor(x):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(a))  # a writable copy
+
+    state = {"embed": tensor(tree["embed"]), "final_norm": tensor(tree["final_norm"]["w"])}
+    if "lm_head" in tree:
+        state["lm_head"] = tensor(tree["lm_head"])
+    P = len(tree["blocks"])
+    for p in range(P):
+        blk = tree["blocks"][f"pos{p}"]
+        n_rep = np.asarray(blk["norm1"]["w"]).shape[0]
+        leaves = {"norm1": blk["norm1"]["w"], "norm2": blk["norm2"]["w"]}
+        leaves.update({f"attn.{k}": blk["attn"][k] for k in ("wq", "wk", "wv", "wo")})
+        for k in ("q_norm", "k_norm"):
+            if k in blk["attn"]:
+                leaves[f"attn.{k}"] = blk["attn"][k]["w"]
+        leaves.update({f"ffn.{k}": w for k, w in blk["ffn"].items()})
+        for name, stacked in leaves.items():
+            stacked = np.asarray(stacked)
+            for rep in range(n_rep):
+                state[f"blocks.{rep * P + p}.{name}"] = tensor(stacked[rep])
+    return state

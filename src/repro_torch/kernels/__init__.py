@@ -7,9 +7,16 @@ PyTorch version, which the wrapper takes for CPU tensors and the tests and
 ``src/repro_torch/csrc/`` and ``_build.py`` compiles them at first use.
 
 * ``segment_reduce`` replaces ``repro/kernels/segment_reduce`` (Pallas);
-* ``local_reduce``   replaces ``repro/kernels/local_reduce`` (Pallas).
+* ``local_reduce``   replaces ``repro/kernels/local_reduce`` (Pallas);
+* ``flash_attention`` replaces ``repro/kernels/flash_attention`` (Pallas);
+* ``decode_attention`` replaces ``repro/kernels/decode_attention`` (Pallas).
 """
 
-from repro_torch.kernels import local_reduce, segment_reduce  # noqa: F401
+from repro_torch.kernels import (  # noqa: F401
+    decode_attention,
+    flash_attention,
+    local_reduce,
+    segment_reduce,
+)
 
-__all__ = ["local_reduce", "segment_reduce"]
+__all__ = ["decode_attention", "flash_attention", "local_reduce", "segment_reduce"]

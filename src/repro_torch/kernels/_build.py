@@ -104,6 +104,14 @@ def load() -> ctypes.CDLL:
     lib.local_reduce_launch.restype = i32
     lib.local_reduce_tiles.argtypes = [i32]
     lib.local_reduce_tiles.restype = i32
+    f32 = ctypes.c_float
+    lib.flash_attention_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                           i32, i32, i32, i32, f32, ptr]
+    lib.flash_attention_launch.restype = i32
+    lib.decode_attention_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                            i32, i32, i32, i32, i32, i32, i32, i32,
+                                            f32, ptr]
+    lib.decode_attention_launch.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib
@@ -139,3 +147,4 @@ def raise_on_error(lib: ctypes.CDLL, name: str, code: int) -> None:
     if code:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({code})")
+

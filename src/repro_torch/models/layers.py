@@ -1,0 +1,139 @@
+"""Shared layers: plain functions on tensors; counterpart of ``repro.models.layers``.
+
+Numerics follow the reference: RMSNorm in float32 and cast back, RoPE on
+the half-split layout (not interleaved) with float32 angles, FFN products
+in the compute dtype, cross-entropy in float32.  Initialisers draw from an
+explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32, cast back to the input dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight.float()).to(dtype)
+
+
+def init_dense(generator: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """(d_in, d_out) normal weights scaled by ``d_in ** -0.5`` (the reference's
+    ``init_dense``), drawn in float32 on the generator's device."""
+    scale = scale if scale is not None else d_in**-0.5
+    w = torch.randn((d_in, d_out), generator=generator, device=generator.device)
+    return (w * scale).to(dtype)
+
+
+def dense_weight(generator: torch.Generator | None, d_in: int, d_out: int, dtype,
+                 device) -> torch.Tensor:
+    """``init_dense`` from ``generator``, or uninitialised memory on ``device``
+    (for ``load_state_dict``) when there is none."""
+    if generator is None:
+        return torch.empty((d_in, d_out), dtype=dtype, device=device)
+    return init_dense(generator, d_in, d_out, dtype)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):
+    """positions (...,) -> cos, sin (..., head_dim/2), float32."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, n_heads, head_dim); cos/sin (..., S, head_dim/2)."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s definition, x * 1 / (1 + exp(-x)), op by op in the
+    input dtype: the reference rounds to bfloat16 after each op, and
+    ``F.silu`` (one rounding) differs from it by one bfloat16 ulp in about
+    a third of the elements."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` op by op in the input dtype, its
+    constants first rounded to that dtype, as the reference computes it."""
+    def const(v: float) -> float:
+        return torch.tensor(v, dtype=x.dtype).item()
+
+    inner = (x + x * x * x * const(0.044715)) * const(math.sqrt(2 / math.pi))
+    return x * ((torch.tanh(inner) + 1.0) * 0.5)
+
+
+def swiglu(x, w_gate, w_up, w_down, compute_dtype=torch.bfloat16):
+    x = x.to(compute_dtype)
+    g = silu(x @ w_gate.to(compute_dtype))
+    u = x @ w_up.to(compute_dtype)
+    return (g * u) @ w_down.to(compute_dtype)
+
+
+def geglu(x, w_gate, w_up, w_down, compute_dtype=torch.bfloat16):
+    x = x.to(compute_dtype)
+    g = gelu(x @ w_gate.to(compute_dtype))
+    u = x @ w_up.to(compute_dtype)
+    return (g * u) @ w_down.to(compute_dtype)
+
+
+def ffn_apply(x, weights: dict, ffn_type: str, compute_dtype=torch.bfloat16):
+    """The FFN of ``ffn_type`` on ``weights`` (names as in the reference)."""
+    if ffn_type == "swiglu":
+        return swiglu(x, weights["w_gate"], weights["w_up"], weights["w_down"],
+                      compute_dtype)
+    if ffn_type == "geglu":
+        return geglu(x, weights["w_gate"], weights["w_up"], weights["w_down"],
+                     compute_dtype)
+    if ffn_type in ("relu", "gelu"):
+        x = x.to(compute_dtype)
+        act = F.relu if ffn_type == "relu" else gelu
+        h = act(x @ weights["w_up"].to(compute_dtype))
+        return h @ weights["w_down"].to(compute_dtype)
+    raise ValueError(ffn_type)
+
+
+def ffn_shapes(d_model: int, d_ff: int, ffn_type: str) -> dict:
+    """Weight name -> (d_in, d_out) of an FFN of ``ffn_type``."""
+    if ffn_type in ("swiglu", "geglu"):
+        return {"w_gate": (d_model, d_ff), "w_up": (d_model, d_ff),
+                "w_down": (d_ff, d_model)}
+    if ffn_type in ("relu", "gelu"):
+        return {"w_up": (d_model, d_ff), "w_down": (d_ff, d_model)}
+    raise ValueError(ffn_type)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       ignore_index: int = -100, z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean softmax cross-entropy in float32; ``ignore_index`` masked."""
+    logits = logits.float()
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = logz - gold
+    if z_loss:
+        nll = nll + z_loss * logz**2
+    nll = torch.where(mask, nll, 0.0)
+    denom = torch.clamp(mask.sum(), min=1)
+    return nll.sum() / denom
+
+
+__all__ = [
+    "rmsnorm", "init_dense", "dense_weight", "rope_angles", "apply_rope", "silu", "gelu", "swiglu",
+    "geglu", "ffn_apply", "ffn_shapes", "cross_entropy_loss",
+]

@@ -1,0 +1,242 @@
+"""The decoder LM: dense attention blocks over token input.
+
+Counterpart of ``repro.models.transformer`` for ``"attn"`` blocks with a
+dense FFN and token input.  The reference stacks each in-period position's
+parameters over repeats and scans them; here the blocks are an
+``nn.ModuleList`` in layer order (layer ``i = rep * P + p``) and a Python
+loop runs them.  Other block kinds, MoE and embedding/VLM input raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+
+The decode state keeps its write position as a host int, so a step never
+reads the device; caches are updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import Attention, init_cache
+from repro_torch.models.layers import (
+    cross_entropy_loss,
+    dense_weight,
+    ffn_apply,
+    ffn_shapes,
+    rmsnorm,
+)
+
+#: ROADMAP.md, queue 1, item 10: the parts of the LM stack still to port
+_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 10: {})"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this slice does not port."""
+    kinds = set(cfg.block_pattern)
+    if kinds - {"attn"}:
+        item = "rwkv6 with kernel 5" if "rwkv" in kinds else "mamba"
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {sorted(kinds - {'attn'})} " + _NOT_PORTED.format(item))
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE " + _NOT_PORTED.format("MoE"))
+    if cfg.input_kind != "tokens" or cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.input_kind}/{cfg.family} input "
+            + _NOT_PORTED.format("VLM and audio inputs"))
+
+
+class FFN(nn.Module):
+    """Dense FFN of ``cfg.ffn_type``; weights (d_in, d_out)."""
+
+    def __init__(self, cfg, dtype, device, generator=None):
+        super().__init__()
+        self.ffn_type = cfg.ffn_type
+        for name, (d_in, d_out) in ffn_shapes(cfg.d_model, cfg.d_ff, cfg.ffn_type).items():
+            w = dense_weight(generator, d_in, d_out, dtype, device)
+            self.register_parameter(name, nn.Parameter(w, requires_grad=False))
+
+    def forward(self, x, compute_dtype):
+        return ffn_apply(x, dict(self.named_parameters()), self.ffn_type, compute_dtype)
+
+
+class Block(nn.Module):
+    """norm -> attention -> residual, norm -> FFN -> residual."""
+
+    def __init__(self, cfg, dtype, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device),
+                                    requires_grad=False)
+        self.norm1 = ones()
+        self.attn = Attention(cfg, dtype, device, generator)
+        self.norm2 = ones()
+        self.ffn = FFN(cfg, dtype, device, generator)
+
+    def forward(self, x, *, cache=None, cache_index=None, use_flash=False):
+        cfg = self.cfg
+        cdt = getattr(torch, cfg.compute_dtype)
+        h = rmsnorm(x, self.norm1, cfg.norm_eps)
+        y, cache = self.attn(h, cache=cache, cache_index=cache_index, use_flash=use_flash)
+        x = x + y.to(x.dtype)
+        h = rmsnorm(x, self.norm2, cfg.norm_eps)
+        x = x + self.ffn(h, cdt).to(x.dtype)
+        return x, cache
+
+
+class Transformer(nn.Module):
+    """Token embedding, ``n_layers`` blocks, final norm, (tied) unembedding.
+
+    ``generator`` draws the weights as the reference's ``init_params`` does
+    (same distributions, not the same numbers); without one the weights are
+    left uninitialised for ``load_state_dict``.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None = None,
+                 device="cuda"):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device if generator is None else generator.device)
+        dtype = getattr(torch, cfg.param_dtype)
+        self.cfg = cfg
+        self.blocks = nn.ModuleList(Block(cfg, dtype, dev, generator)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=dev),
+                                       requires_grad=False)
+        if generator is not None:
+            embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=generator,
+                                device=dev) * cfg.d_model**-0.5
+            embed = embed.to(dtype)
+        else:
+            embed = torch.empty((cfg.vocab_padded, cfg.d_model), dtype=dtype, device=dev)
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        if not cfg.tie_embeddings:
+            w = dense_weight(generator, cfg.d_model, cfg.vocab_padded, dtype, dev)
+            self.lm_head = nn.Parameter(w, requires_grad=False)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
+    """A model with weights drawn on ``device`` from ``torch.Generator(seed)``."""
+    dev = resolve_device(device)
+    return Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def embed_inputs(model: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Token ids (B, S) -> hidden states (B, S, D) in the parameter dtype."""
+    return F.embedding(batch["tokens"].long(), model.embed)
+
+
+def unembed(model: Transformer, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """Logits (..., vocab_padded) in the compute dtype; pad-vocab columns at -1e30."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    h = h.to(cdt)
+    if cfg.tie_embeddings:
+        logits = h @ model.embed.to(cdt).T
+    else:
+        logits = h @ model.lm_head.to(cdt)
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.where(torch.arange(cfg.vocab_padded, device=h.device) < cfg.vocab_size,
+                          0.0, -1e30).to(logits.dtype)
+        logits = logits + pad
+    return logits
+
+
+def _run_blocks(model, x, *, state=None, use_flash=False):
+    for i, block in enumerate(model.blocks):
+        if state is None:
+            x, _ = block(x, use_flash=use_flash)
+        else:
+            x, _ = block(x, cache=state.caches[i], cache_index=state.pos,
+                         use_flash=use_flash)
+    return x
+
+
+@torch.no_grad()
+def forward(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=False,
+            return_hidden=False):
+    """Full forward -> (logits (B, S, V), aux), or (hidden, aux); aux is 0
+    (no MoE in this slice)."""
+    x = embed_inputs(model, cfg, batch)
+    x = _run_blocks(model, x, use_flash=use_flash)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    aux = torch.zeros((), device=x.device)
+    if return_hidden:
+        return x, aux
+    return unembed(model, cfg, x), aux
+
+
+@torch.no_grad()
+def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=False,
+            logits_chunk: int = 0) -> torch.Tensor:
+    """Next-token LM loss; ``logits_chunk > 0`` computes logits and the loss
+    in sequence chunks of that size (never the full (B, S, V) logits)."""
+    if not cfg.causal:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder loss " + _NOT_PORTED.format("VLM and audio inputs"))
+    h, _ = forward(model, cfg, batch, use_flash=use_flash, return_hidden=True)
+    labels = batch["tokens"][:, 1:].long()
+    h = h[:, :-1]
+    S = h.shape[1]
+    if not (logits_chunk and S > logits_chunk):
+        return cross_entropy_loss(unembed(model, cfg, h), labels)
+    total = torch.zeros((), device=h.device)
+    count = torch.zeros((), dtype=torch.int64, device=h.device)
+    for s0 in range(0, S, logits_chunk):
+        lc = labels[:, s0:s0 + logits_chunk]
+        n = (lc != -100).sum()
+        total = total + cross_entropy_loss(unembed(model, cfg, h[:, s0:s0 + logits_chunk]),
+                                           lc) * torch.clamp(n, min=1)
+        count = count + n
+    return total / torch.clamp(count, min=1)
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """Per-layer (k, v) caches, each (B, max_len, n_kv, hd), and the write
+    position ``pos`` (a host int; tokens appended so far)."""
+
+    caches: list
+    pos: int = 0
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      cache_dtype=torch.bfloat16, device="cuda") -> DecodeState:
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return DecodeState([init_cache(cfg, batch, max_len, cache_dtype, dev)
+                        for _ in range(cfg.n_layers)])
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cfg: ModelConfig, state: DecodeState, batch: dict, *,
+                use_flash=False):
+    """Append S new tokens (S = 1 to decode) -> (logits (B, S, V), state).
+
+    The caches are written in place; the returned state is ``state`` with
+    ``pos`` advanced by S.
+    """
+    x = embed_inputs(model, cfg, batch)
+    x = _run_blocks(model, x, state=state, use_flash=use_flash)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps)
+    logits = unembed(model, cfg, x)
+    state.pos += x.shape[1]
+    return logits, state
+
+
+def prefill(model: Transformer, cfg: ModelConfig, batch: dict, max_len: int, *,
+            use_flash=False, cache_dtype=torch.bfloat16):
+    """Process the whole prompt: (last-token logits (B, 1, V), filled state)."""
+    B = batch["tokens"].shape[0]
+    state = init_decode_state(cfg, B, max_len, cache_dtype, model.embed.device)
+    logits, state = decode_step(model, cfg, state, batch, use_flash=use_flash)
+    return logits[:, -1:], state
+
+
+__all__ = [
+    "Transformer", "Block", "FFN", "DecodeState", "check_supported", "init_params",
+    "embed_inputs", "unembed", "forward", "loss_fn", "init_decode_state",
+    "decode_step", "prefill",
+]

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.local_reduce import local_reduce, local_reduce_ref
 from repro_torch.kernels.segment_reduce import (
     PAD_KEY,
@@ -76,3 +78,87 @@ def test_cuda_backend_equals_torch_backend(combiner):
         cfg = JobConfig(7, 3, 2, combiner=combiner, reduce_backend=backend)
         outs[backend] = build_job(wordcount(500), cfg, len(corpus))(corpus)
     assert all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["torch"]))
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+def _attn_inputs(seed, dtype, *shapes):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full float32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=g, device="cuda").to(dtype) for s in shapes]
+
+
+def _assert_close(got, want, dtype):
+    tol = ATTN_TOL[dtype]
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,nkv,hd,causal", [
+    (2, 128, 128, 4, 2, 64, True),
+    (1, 256, 256, 8, 8, 128, True),
+    (2, 100, 100, 4, 1, 32, True),      # ragged: tail rows and keys
+    (1, 64, 192, 2, 2, 80, False),      # Sk > Sq, head_dim 80
+    (1, 128, 128, 16, 2, 128, True),    # G = 8
+    (1, 300, 300, 2, 1, 16, True),      # head_dim 16, tiles across G
+])
+def test_flash_attention_matches_plain(dtype, B, Sq, Sk, Hq, nkv, hd, causal):
+    _needs_card()
+    q, k, v = _attn_inputs(Sq + hd, dtype, (B, Sq, Hq, hd), (B, Sk, nkv, hd),
+                           (B, Sk, nkv, hd))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_close(got, flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,S_max,Hq,nkv,hd,kv_len", [
+    (2, 1, 256, 4, 2, 64, 100),
+    (1, 1, 1024, 8, 8, 128, 1024),
+    (2, 4, 512, 4, 1, 32, 300),
+    (1, 1, 96, 2, 2, 80, 7),
+    (2, 1, 8192, 16, 8, 128, 6000),     # decode: keys split across blocks
+    (1, 200, 512, 16, 8, 128, 300),     # prefill rows after 100 cached
+    (1, 4, 128, 4, 2, 32, 140),         # kv_len > S_max: every slot visible
+])
+def test_decode_attention_matches_plain(dtype, B, Sq, S_max, Hq, nkv, hd, kv_len):
+    _needs_card()
+    q, k, v = _attn_inputs(S_max + kv_len, dtype, (B, Sq, Hq, hd), (B, S_max, nkv, hd),
+                           (B, S_max, nkv, hd))
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    _assert_close(got, decode_attention_ref(q, k, v, kv_len), dtype)
+
+
+@pytest.mark.cuda
+def test_decode_attention_ignores_garbage_beyond_kv_len():
+    _needs_card()
+    q, k, v = _attn_inputs(1, torch.float32, (1, 1, 2, 32), (1, 4096, 2, 32),
+                           (1, 4096, 2, 32))
+    out1 = decode_attention(q, k, v, 50)
+    k[:, 50:] = 1e4
+    v[:, 50:] = float("nan")  # never read
+    out2 = decode_attention(q, k, v, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_reject_what_the_kernels_do_not_take():
+    _needs_card()
+    q, k = _attn_inputs(2, torch.float16, (1, 8, 4, 64), (1, 8, 2, 64))
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q, k, k)
+    qb, kb = q.bfloat16(), k.bfloat16()
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention(qb, kb.transpose(1, 2).contiguous().transpose(1, 2), kb, 8)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(qb[..., :40], kb[..., :40], kb[..., :40])
