@@ -37,7 +37,21 @@ Phases, one or more printed lines each:
    (elementwise) and against the plain ``use_flash=False`` path, 2048-token
    scoring logits and loss, attention launch counts equal to 28 per
    decode_step and forward call the phase drives, and one decode step's
-   device time by kernel.
+   device time by kernel;
+9. wkv6: the WKV6 kernel against its plain version (the chunked form) on
+   the card, float32 at the reference test's shapes (ragged T, w = 1e-6),
+   bf16 r, k, v with a non-zero initial state at the rwkv6-3b long-prompt
+   batch and one 32768-token sequence, elementwise and row by row, with
+   proof that the check rejects an ignored initial state, a dropped bonus
+   diagonal and a lost chunk state update; its time, the plain version's
+   and the bound;
+10. rwkv: the rwkv6-3b serving and scoring path at full width (32 layers):
+   the same serving steps as phase 8, decode-vs-forward logits across
+   chunks, each layer's wkv6 call held against its plain version, the
+   32-layer logits against the path with the plain version within a
+   measured floor, 2048-token scoring, wkv6 launches equal to 32 per
+   decode_step and forward call of more than one token and none at one
+   token, and one decode step's device time by kernel.
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -54,6 +68,7 @@ import math
 import subprocess
 import sys
 import time
+import unittest.mock
 from pathlib import Path
 
 import numpy as np
@@ -856,11 +871,414 @@ def serve_breakdown(server) -> None:
             entry[1] += 1
     busy = sum(us for us, _ in by_kernel.values())
     n = sum(c for _, c in by_kernel.values())
-    log("breakdown", f"qwen3-0.6b decode step, batch 8, 512 cached tokens, under "
+    log("breakdown", f"{cfg.name} decode step, batch 8, 512 cached tokens, under "
         f"torch.profiler: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
         f"({busy / wall_us:.0%}), {n} kernel launches")
     for kname, (us, c) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
         log("breakdown", f"  {us / 1e3:8.3f} ms  {c:4d}x  {kname[:90]}")
+
+
+#: WKV6 output and final state against the plain version: elementwise at
+#: the tolerance of tests/test_kernels.py::TestWKV6, and per row (one
+#: (token, head) of out, one key row of S) relative to the row's norm
+WKV6_TOL, WKV6_ROW_TOL = 2e-3, 1e-2
+F32_FLOPS = 67e12  # H100 SXM float32 on the CUDA cores, NVIDIA data sheet
+RWKV = dict(H=40, hs=64)  # rwkv6-3b's heads
+
+
+def wkv6_bound(B, T, H, hs, chunk, itemsize):
+    """(bound ms, bound_by, chunked flops, exps) of one WKV6 call.  The
+    bound is the larger of the float32 operations the function needs at
+    the float32 peak, the step recurrence's 5 hs^2 + 5 hs per (token, head)
+    (r S; diag(w) S + k v^T; the bonus term), and the bytes (r, k, v in
+    their dtype, w float32 read once, u and the initial state read, out
+    float32 and the final state written) at the HBM rate.  The flops and
+    pair-decay exps of the chunked form the kernel runs are information,
+    not part of the bound."""
+    tokens = B * T * H
+    flops = tokens * (5 * hs * hs + 5 * hs)
+    nbytes = tokens * hs * (3 * itemsize + 4 + 4) + H * hs * 4 + 2 * B * H * hs * hs * 4
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    n_chunks = math.ceil(T / chunk)
+    pairs = chunk * (chunk - 1) // 2
+    chunked = B * H * n_chunks * (4 * chunk * hs * hs + 5 * pairs * hs + 3 * chunk * hs)
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
+            chunked, B * H * n_chunks * pairs * hs)
+
+
+def wkv6_inputs(seed, B, T, H, hs, dtype, *, w_range=(0.05, 0.999), with_state=True):
+    """r, k, v (dtype), w, u and the initial state (float32) on the card,
+    drawn as tests/test_kernels.py::TestWKV6 draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, T, H, hs)
+    r = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    k = (torch.randn(shape, generator=g, device="cuda") * 0.5).to(dtype)
+    v = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    lo, hi = w_range
+    w = torch.rand(shape, generator=g, device="cuda") * (hi - lo) + lo
+    u = torch.randn((H, hs), generator=g, device="cuda") * 0.3
+    S0 = torch.randn((B, H, hs, hs), generator=g, device="cuda") * 0.5 if with_state else None
+    return r, k, v, w, u, S0
+
+
+def check_wkv6(got, want, what) -> tuple[float, float]:
+    """Holds (out, S_T) of the kernel against the plain version's:
+    elementwise to WKV6_TOL and row by row to WKV6_ROW_TOL; returns the
+    largest errors."""
+    torch.cuda.synchronize()
+    errs = [attention_errs(g, w) for g, w in zip(got, want)]
+    err, row_err = max(e for e, _ in errs), max(r for _, r in errs)
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or not torch.isfinite(g).all() or not torch.allclose(
+                g.float(), w.float(), rtol=WKV6_TOL, atol=WKV6_TOL) or not row_err <= WKV6_ROW_TOL:
+            raise AssertionError(f"wkv6 differs from its plain version on {what}: max abs "
+                                 f"err {err}, row err {row_err}")
+    return err, row_err
+
+
+def wkv6_wrong_outputs(r, k, v, w, u, S0, chunk=64) -> dict:
+    """Outputs of plausible kernel faults, from the plain version: the
+    initial state ignored, the bonus diagonal dropped, and the state
+    update of the chunk in the middle of the sequence lost."""
+    from repro_torch.kernels.rwkv6 import wkv6_chunked_ref
+
+    ref = functools.partial(wkv6_chunked_ref, chunk=chunk, out_dtype=torch.float32)
+    a = r.shape[1] // chunk // 2 * chunk
+    first, S_a = ref(r[:, :a], k[:, :a], v[:, :a], w[:, :a], u, state=S0)
+    b = a + chunk
+    lost, _ = ref(r[:, a:b], k[:, a:b], v[:, a:b], w[:, a:b], u, state=S_a)
+    rest, S_T = ref(r[:, b:], k[:, b:], v[:, b:], w[:, b:], u, state=S_a)
+    return {"initial state ignored": ref(r, k, v, w, u),
+            "bonus diagonal dropped": ref(r, k, v, w, torch.zeros_like(u), state=S0),
+            f"state update of chunk {a // chunk} lost": (torch.cat([first, lost, rest], 1), S_T)}
+
+
+def phase_wkv6() -> dict:
+    """The WKV6 kernel against its plain version on the card; returns the
+    kernels-line numbers of the serving shape."""
+    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full float32
+    H, hs = RWKV["H"], RWKV["hs"]
+    err_max = 0.0
+    # tests/test_kernels.py::TestWKV6's cases, float32, zero state; then strong decay.
+    cases = [((2, 64, 2, 32), 16, {}), ((1, 100, 4, 64), 32, {}), ((2, 32, 1, 16), 32, {}),
+             ((1, 128, 2, 64), 64, {}), ((1, 64, 1, 16), 16, {"w_range": (1e-6, 1e-6)})]
+    for i, (shape, chunk, kw) in enumerate(cases):
+        r, k, v, w, u, _ = wkv6_inputs(20 + i, *shape, torch.float32, with_state=False, **kw)
+        what = f"{shape} chunk {chunk}" + (" w = 1e-6" if kw else "")
+        e, re_ = check_wkv6(wkv6(r, k, v, w, u, chunk=chunk),
+                            wkv6_chunked_ref(r, k, v, w, u, chunk=chunk), what)
+        err_max = max(err_max, e)
+        log("wkv6", f"{what} (float32): err {e:.2e}, row err {re_:.2e} (tolerance 2e-3, "
+            "rows 1e-2)")
+
+    # The serving long-prompt batch, one scoring sequence and one long
+    # sequence, bf16 r, k, v, float32 out (the model path), a non-zero
+    # initial state.  At B = 1 the wrapper splits each head's value columns
+    # across blocks (ops.split_count); those shapes are timed with one
+    # block per head as well.
+    report = {}
+    for i, B_T in enumerate(((8, 2048), (1, 2048), (1, 32768))):
+        shape = (*B_T, H, hs)
+        r, k, v, w, u, S0 = wkv6_inputs(30 + i, *shape, torch.bfloat16)
+        kern = lambda: wkv6(r, k, v, w, u, state=S0, out_dtype=torch.float32)
+        ref = lambda: wkv6_chunked_ref(r, k, v, w, u, state=S0, out_dtype=torch.float32)
+        want = ref()
+        e, re_ = check_wkv6(kern(), want, f"{shape} bf16")
+        err_max = max(err_max, e)
+        if i == 0:
+            said = []
+            for what, bad in wkv6_wrong_outputs(r, k, v, w, u, S0).items():
+                try:
+                    check_wkv6(bad, want, what)
+                except AssertionError:
+                    said.append(f"{what}: row err {max(attention_errs(b, g)[1] for b, g in zip(bad, want)):.3f}")
+                    continue
+                raise AssertionError(f"the wkv6 check passes a wrong output ({what})")
+            log("wkv6", f"{shape} bf16: the check rejects " + "; ".join(said))
+        del want
+        ms = device_ms(kern)
+        splits = rwkv6_ops.split_count(B_T[0] * H, hs, rwkv6_ops._sm_count(0))
+        unsplit = ""
+        if splits > 1:
+            with unittest.mock.patch.object(rwkv6_ops, "split_count", lambda *a: 1):
+                ms_one = device_ms(kern)
+            unsplit = (f" (one block per head: {ms_one:.4f} ms, so the split is "
+                       f"{ms_one / ms:.2f}x as fast)")
+        plain_ms = device_ms(ref, iters=3, warmup=1)
+        bound_ms, bound_by, chunked, exps = wkv6_bound(*shape, 64, 2)
+        log("wkv6", f"{shape} bf16 r, k, v, non-zero state, chunk 64, {splits} blocks per head: "
+            f"err {e:.2e}, row err {re_:.2e} (tolerance 2e-3, rows 1e-2); kernel {ms:.4f} ms"
+            f"{unsplit}, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the step "
+            f"recurrence's float32 flops at 67 TFLOP/s, bytes at 3.35 TB/s; {bound_ms / ms:.0%} "
+            f"of it reached); the chunked form does {chunked / 1e9:.3f} GFLOP and "
+            f"{exps / 1e9:.3f} G pair-decay exps; library call: none")
+        if i == 0:
+            report["wkv6"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": None, "exps": exps,
+                              "chunked_flops": chunked, "shape": list(shape)}
+        del r, k, v, w, u, S0
+        torch.cuda.empty_cache()
+    report["wkv6"]["max_abs_err"] = err_max
+    return report
+
+
+@contextlib.contextmanager
+def wkv6_swapped(fn):
+    """Runs the model with ``fn`` in place of the WKV6 kernel."""
+    from repro_torch.models import ssm
+
+    saved = ssm.wkv6
+    ssm.wkv6 = fn
+    try:
+        yield
+    finally:
+        ssm.wkv6 = saved
+
+
+def wkv6_held(stats: dict):
+    """A stand-in for the kernel that launches it, holds its output against
+    the plain version on the same inputs (``check_wkv6``) and keeps (calls,
+    max abs err, max row err) in ``stats``."""
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
+
+    def call(*args, **kwargs):
+        got = wkv6(*args, **kwargs)
+        err, row_err = check_wkv6(got, wkv6_chunked_ref(*args, **kwargs),
+                                  "the model's activations")
+        n, e, r = stats.get("wkv6", (0, 0.0, 0.0))
+        stats["wkv6"] = (n + 1, max(e, err), max(r, row_err))
+        return got
+    return call
+
+
+def phase_rwkv() -> dict:
+    """The rwkv6-3b serving and scoring path at full width; returns the
+    wkv6 launches it made, counted from zero at its start and held against
+    the calls it drives: 32 per decode_step and forward call of S > 1
+    tokens, none at S = 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import StepConfig, build_eval_step
+
+    cfg = get_config("rwkv6-3b")
+    V, L = cfg.vocab_size, cfg.n_layers
+    wkv6.launches = 0
+    calls = 0  # decode_step and forward calls of S > 1 tokens
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log("rwkv", f"{cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv_head_size}"
+        f" heads of {cfg.rwkv_head_size}, d_ff {cfg.d_ff}, vocab {V}; {n_bytes / 1e9:.3f} GB of "
+        f"bf16 weights drawn on the card in {time.perf_counter() - t0:.1f} s")
+
+    # launch/serve.py:main: profile, fit, pick the SLO batch, serve 32 requests.
+    server = BatchedServer(cfg, model)
+    latency = server.profile_latency_model()
+    calls += len(server.profiled) * 3  # a prefill per serve: warm-up and two repeats
+    for b, t in server.profiled.items():
+        log("rwkv", f"profile batch {b}: {t * 1e3:.3f} ms/token")
+    batch = server.pick_batch_for_slo(latency, 50e-3)
+    log("rwkv", f"fit: train MAPE {latency.train_mape:.2f}%, R^2 {latency.r2:.4f}; "
+        f"SLO 50 ms/token -> predicted max batch {batch}")
+    done, g = 0, torch.Generator(device="cuda")
+    while done < 32:
+        b = min(batch, 32 - done)
+        prompts = torch.randint(0, V, (b, 8), generator=g.manual_seed(done), device="cuda")
+        toks, per_tok = server.serve(prompts, 16)
+        calls += 1
+        if toks.shape != (b, 16) or int(toks.min()) < 0 or int(toks.max()) >= V:
+            raise AssertionError(f"served tokens out of range: {tuple(toks.shape)}")
+        done += b
+        log("rwkv", f"served {b} requests of 8-token prompts, 16 new tokens: "
+            f"{per_tok * 1e3:.3f} ms/token, prefill {server.last_prefill_s * 1e3:.2f} ms "
+            f"({done}/32 done)")
+    pred = latency.predict(np.asarray([[3.0], [6.0]]), device="cuda").cpu().numpy()
+    for b, p in zip((3, 6), pred):
+        m = server.token_latency(b)
+        calls += 3
+        log("rwkv", f"batch {b}: predicted {p * 1e3:.3f} ms/token, measured "
+            f"{m * 1e3:.3f} ms/token ({(p - m) / m:+.1%})")
+
+    # One batch of 8 long prompts.
+    prompts = torch.randint(0, V, (8, 2048), generator=g.manual_seed(7), device="cuda")
+    server.serve(prompts[:, :64], 4)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    toks, per_tok = server.serve(prompts, 128)
+    calls += 2
+    log("rwkv", f"8 requests of 2048-token prompts, 128 new tokens: prefill "
+        f"{server.last_prefill_s * 1e3:.1f} ms ({8 * 2048 / server.last_prefill_s:.0f} tokens/s), "
+        f"decode {per_tok * 1e3:.3f} ms/token; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if toks.shape != (8, 128):
+        raise AssertionError(f"long-prompt batch returned {tuple(toks.shape)}")
+    del prompts, toks
+    torch.cuda.empty_cache()
+
+    # 160 tokens (two chunks and a ragged third): forward, and a prefill of
+    # 128 through decode_step then 32 single steps, each wkv6 call held
+    # against its plain version.  Then the 32-layer logits against the same
+    # path with the plain version, and that path against itself with w
+    # moved by 2^-20 (a float32-sized change): the floor to which the bf16
+    # model amplifies any sub-ulp difference.
+    plain = wkv6_chunked_ref
+    nudged = lambda r, k, v, w, u, **kw: wkv6_chunked_ref(r, k, v, w * (1 - 2**-20), u, **kw)
+    held: dict = {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, V, (2, 160), generator=gen, device="cuda")
+    with wkv6_swapped(wkv6_held(held)):
+        full, _ = tf.forward(model, cfg, {"tokens": tokens})
+        dec = teacher_forced(model, cfg, tokens, 128)
+    calls += 2
+    with wkv6_swapped(plain):
+        full_ref, _ = tf.forward(model, cfg, {"tokens": tokens})
+        dec_ref = teacher_forced(model, cfg, tokens, 128)
+    with wkv6_swapped(nudged):
+        floor, floor_rel = logits_err(tf.forward(model, cfg, {"tokens": tokens})[0], full_ref, V)
+    err_dec, rel_dec = logits_err(dec, full[:, 127:], V)
+    err_dec_ref, _ = logits_err(dec_ref, full_ref[:, 127:], V)
+    limit, limit_rel = max(5e-2, 2 * floor), max(5e-2, 2 * floor_rel)
+    if not (err_dec <= max(2e-2, 2 * floor) and rel_dec <= limit_rel):
+        raise AssertionError(f"decode_step differs from forward: {err_dec} (relative norm "
+                             f"{rel_dec}), floor {floor} ({floor_rel})")
+    err_full, rel_full = logits_err(full, full_ref, V)
+    err_step, rel_step = logits_err(dec, dec_ref, V)
+    if not (err_full <= limit and err_step <= limit and max(rel_full, rel_step) <= limit_rel):
+        raise AssertionError(f"kernel-path logits differ from the plain version's: forward "
+                             f"{err_full} ({rel_full}), decode_step {err_step} ({rel_step}), "
+                             f"floor {floor} ({floor_rel})")
+    n, e, r = held["wkv6"]
+    log("rwkv", f"prefill 128 + 32 decode steps (f32 state) vs forward at each position: max "
+        f"abs err {err_dec:.3e}, relative norm {rel_dec:.3e} (the plain version's path: "
+        f"{err_dec_ref:.3e}; tolerance max(2e-2, 2 x floor)), logits scale "
+        f"{float(full[..., :V].float().abs().max()):.2f}")
+    log("rwkv", f"each wkv6 call of that run vs its plain version on the same inputs: {n} "
+        f"calls, max abs err {e:.3e}, row err {r:.3e} (tolerance 2e-3, rows 1e-2)")
+    log("rwkv", f"{L}-layer logits, kernel vs its plain version on the same path: forward max "
+        f"abs err {err_full:.3e} (relative norm {rel_full:.3e}), prefill + decode steps "
+        f"{err_step:.3e} ({rel_step:.3e}); plain version vs itself with w moved by 2^-20: "
+        f"{floor:.3e} ({floor_rel:.3e}) (tolerance max(5e-2, 2 x that), both)")
+    del full, full_ref, dec, dec_ref
+
+    # Scoring at 2048 tokens.
+    held.clear()
+    seq = torch.randint(0, V, (1, 2048), generator=gen, device="cuda")
+    with wkv6_swapped(wkv6_held(held)):
+        got, _ = tf.forward(model, cfg, {"tokens": seq})
+    calls += 1
+    with wkv6_swapped(plain):
+        want, _ = tf.forward(model, cfg, {"tokens": seq})
+    with wkv6_swapped(nudged):
+        floor_long, floor_long_rel = logits_err(tf.forward(model, cfg, {"tokens": seq})[0],
+                                                want, V)
+    err_long, rel_long = logits_err(got, want, V)
+    del got, want
+    n, e, r = held["wkv6"]
+    if not (err_long <= max(5e-2, 2 * floor_long)
+            and rel_long <= max(5e-2, 2 * floor_long_rel)):
+        raise AssertionError(f"2048-token logits differ from the plain version's: {err_long} "
+                             f"({rel_long}), floor {floor_long} ({floor_long_rel})")
+    log("rwkv", f"2048-token scoring: {n} wkv6 calls vs their plain version max abs err "
+        f"{e:.3e}, row err {r:.3e}; logits vs the plain version's path max abs err "
+        f"{err_long:.3e} (relative norm {rel_long:.3e}), floor {floor_long:.3e} "
+        f"({floor_long_rel:.3e})")
+    score = build_eval_step(cfg, StepConfig(logits_chunk=512))
+    loss = float(score(model, {"tokens": seq}))
+    calls += 1
+    with wkv6_swapped(plain):
+        ref = float(score(model, {"tokens": seq}))
+    with wkv6_swapped(nudged):
+        loss_floor = abs(float(score(model, {"tokens": seq})) - ref)
+    if not (math.isfinite(loss) and abs(loss - ref) <= max(2e-2, 2 * loss_floor)):
+        raise AssertionError(f"scoring loss {loss} vs plain {ref}, floor {loss_floor}")
+    log("rwkv", f"2048-token scoring loss {loss:.5f}, plain version's path {ref:.5f} "
+        f"(|diff| {abs(loss - ref):.2e}; with w moved by 2^-20 {loss_floor:.2e}; tolerance "
+        f"max(2e-2, 2 x that))")
+
+    launches = {"wkv6": wkv6.launches}
+    if launches["wkv6"] != L * calls:
+        raise AssertionError(f"rwkv launches {launches}, want {L} x {calls} calls of S > 1")
+    log("launches", f"rwkv path: wkv6 {launches['wkv6']} ({L} x {calls} decode_step and "
+        "forward calls of S > 1 tokens)")
+    # The breakdown prefills 512 tokens (one call of S > 1), then decodes.
+    serve_breakdown(server)
+    if wkv6.launches != launches["wkv6"] + L:
+        raise AssertionError(f"wkv6 launched at S = 1: {wkv6.launches - launches['wkv6']} "
+                             f"launches for one prefill and 4 decode steps")
+    log("launches", f"rwkv breakdown: {L} wkv6 launches for its 512-token prefill, none for "
+        "its 4 decode steps")
+    rwkv_cut(model, cfg, tokens)
+    return launches
+
+
+#: depth of the full-width cut of rwkv6-3b held against forward and the
+#: plain path
+RWKV_CUT = 4
+
+
+def rwkv_cut(model, cfg, tokens) -> None:
+    """The first RWKV_CUT layers of the full-width model (same weights) on
+    the 160 tokens of phase_rwkv: prefill of 128 + 32 decode steps (float32
+    state) against forward, and the kernel path against the plain version's
+    path, elementwise.  In bf16 a 2^-20 change of w already moves these
+    logits by about 0.2 (bf16 roundings flip), so the bf16 cut is held to
+    its measured floor as the 32-layer path is; the same cut upcast to
+    float32 has no such floor and is held to 2e-2 (tests/test_models_smoke.py)
+    and 5e-2.  Its wkv6 launches (RWKV_CUT per call of S > 1) are checked
+    here, after the main path's counts were read."""
+    import dataclasses
+
+    from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
+    from repro_torch.models import transformer as tf
+
+    V, n = cfg.vocab_size, RWKV_CUT
+    nudged = lambda r, k, v, w, u, **kw: wkv6_chunked_ref(r, k, v, w * (1 - 2**-20), u, **kw)
+    weights = {name: t for name, t in model.state_dict().items()
+               if not name.startswith("blocks.") or int(name.split(".")[1]) < n}
+    for dtype in ("bfloat16", "float32"):
+        cut = dataclasses.replace(cfg, n_layers=n, param_dtype=dtype, compute_dtype=dtype)
+        small = tf.Transformer(cut, device=tokens.device)
+        small.load_state_dict(weights)
+        held: dict = {}
+        before = wkv6.launches
+        with wkv6_swapped(wkv6_held(held)):
+            full, _ = tf.forward(small, cut, {"tokens": tokens})
+            dec = teacher_forced(small, cut, tokens, 128)
+        if wkv6.launches - before != 2 * n:
+            raise AssertionError(f"{n}-layer cut: {wkv6.launches - before} wkv6 launches for a "
+                                 f"forward and a prefill, want {2 * n}")
+        with wkv6_swapped(wkv6_chunked_ref):
+            full_ref, _ = tf.forward(small, cut, {"tokens": tokens})
+            dec_ref = teacher_forced(small, cut, tokens, 128)
+        with wkv6_swapped(nudged):
+            floor, floor_rel = logits_err(tf.forward(small, cut, {"tokens": tokens})[0],
+                                          full_ref, V)
+        err_dec, rel_dec = logits_err(dec, full[:, 127:], V)
+        err_full, rel_full = logits_err(full, full_ref, V)
+        err_step, rel_step = logits_err(dec, dec_ref, V)
+        tol_dec, tol_path = (2e-2, 5e-2) if dtype == "float32" else (
+            max(2e-2, 2 * floor), max(5e-2, 2 * floor))
+        log("rwkv", f"{n}-layer cut at full width in {dtype}, 160 tokens: prefill 128 + 32 "
+            f"decode steps (f32 state) vs forward max abs err {err_dec:.3e} (relative norm "
+            f"{rel_dec:.3e}; tolerance {tol_dec:.3g}); kernel vs plain path: forward "
+            f"{err_full:.3e} ({rel_full:.3e}), prefill + decode {err_step:.3e} ({rel_step:.3e}) "
+            f"(tolerance {tol_path:.3g}); plain path vs itself with w moved by 2^-20: "
+            f"{floor:.3e} ({floor_rel:.3e}); logits scale "
+            f"{float(full[..., :V].float().abs().max()):.2f}; {held['wkv6'][0]} wkv6 calls "
+            f"held, max abs err {held['wkv6'][1]:.3e}")
+        if not err_dec <= tol_dec:
+            raise AssertionError(f"{n}-layer {dtype} cut: decode_step differs from forward by "
+                                 f"{err_dec}")
+        if not (err_full <= tol_path and err_step <= tol_path):
+            raise AssertionError(f"{n}-layer {dtype} cut: kernel-path logits differ from the "
+                                 f"plain version's: forward {err_full}, decode_step {err_step}")
+        del small, full, full_ref, dec, dec_ref
+        torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -916,6 +1334,12 @@ def main() -> int:
 
     # The serving main path, counted from zero inside.
     launches.update(phase_serve())
+    torch.cuda.empty_cache()
+
+    # The rwkv6-3b path: the WKV6 kernel alone, then serving and scoring,
+    # counted from zero inside.
+    report.update(phase_wkv6())
+    launches.update(phase_rwkv())
 
     sources = {"segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce/kernel.py:28"),
@@ -924,14 +1348,16 @@ def main() -> int:
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:31"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention/kernel.py:31")}
+                                   "src/repro/kernels/flash_attention/kernel.py:31"),
+               "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv6/kernel.py:30")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
          "bound_ms": report[name]["bound_ms"],
          "bound_by": report[name].get("bound_by", "bytes"),
-         "library_ms": report[name].get("library_ms"), "shape": report[name]["shape"]}
+         "library_ms": report[name].get("library_ms"), "shape": report[name]["shape"],
+         **{key: report[name][key] for key in ("exps", "chunked_flops") if key in report[name]}}
         for name, (src, replaces) in sources.items()]}
     if any(k["launches"] < 1 for k in line["kernels"]):
         raise AssertionError(f"a kernel was not launched on its main path: {launches}")

@@ -84,11 +84,14 @@ def lm_params_from_reference(tree: dict) -> dict:
         blk = tree["blocks"][f"pos{p}"]
         n_rep = np.asarray(blk["norm1"]["w"]).shape[0]
         leaves = {"norm1": blk["norm1"]["w"], "norm2": blk["norm2"]["w"]}
-        leaves.update({f"attn.{k}": blk["attn"][k] for k in ("wq", "wk", "wv", "wo")})
-        for k in ("q_norm", "k_norm"):
-            if k in blk["attn"]:
-                leaves[f"attn.{k}"] = blk["attn"][k]["w"]
-        leaves.update({f"ffn.{k}": w for k, w in blk["ffn"].items()})
+        if "rwkv" in blk:  # the channel-mix weights are among the rwkv leaves
+            leaves.update({f"rwkv.{k}": w for k, w in blk["rwkv"].items()})
+        else:
+            leaves.update({f"attn.{k}": blk["attn"][k] for k in ("wq", "wk", "wv", "wo")})
+            for k in ("q_norm", "k_norm"):
+                if k in blk["attn"]:
+                    leaves[f"attn.{k}"] = blk["attn"][k]["w"]
+            leaves.update({f"ffn.{k}": w for k, w in blk["ffn"].items()})
         for name, stacked in leaves.items():
             stacked = np.asarray(stacked)
             for rep in range(n_rep):

@@ -9,14 +9,17 @@ PyTorch version, which the wrapper takes for CPU tensors and the tests and
 * ``segment_reduce`` replaces ``repro/kernels/segment_reduce`` (Pallas);
 * ``local_reduce``   replaces ``repro/kernels/local_reduce`` (Pallas);
 * ``flash_attention`` replaces ``repro/kernels/flash_attention`` (Pallas);
-* ``decode_attention`` replaces ``repro/kernels/decode_attention`` (Pallas).
+* ``decode_attention`` replaces ``repro/kernels/decode_attention`` (Pallas);
+* ``rwkv6``           replaces ``repro/kernels/rwkv6`` (Pallas).
 """
 
 from repro_torch.kernels import (  # noqa: F401
     decode_attention,
     flash_attention,
     local_reduce,
+    rwkv6,
     segment_reduce,
 )
 
-__all__ = ["decode_attention", "flash_attention", "local_reduce", "segment_reduce"]
+__all__ = ["decode_attention", "flash_attention", "local_reduce", "rwkv6",
+           "segment_reduce"]

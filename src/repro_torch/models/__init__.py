@@ -1,5 +1,5 @@
-"""The LM stack's models: layers, attention, and the decoder transformer."""
+"""The LM stack's models: layers, attention, RWKV, and the decoder transformer."""
 
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, ssm, transformer
 
-__all__ = ["attention", "layers", "transformer"]
+__all__ = ["attention", "layers", "ssm", "transformer"]

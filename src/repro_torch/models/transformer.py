@@ -1,14 +1,16 @@
-"""The decoder LM: dense attention blocks over token input.
+"""The decoder LM: attention and RWKV blocks over token input.
 
 Counterpart of ``repro.models.transformer`` for ``"attn"`` blocks with a
-dense FFN and token input.  The reference stacks each in-period position's
-parameters over repeats and scans them; here the blocks are an
-``nn.ModuleList`` in layer order (layer ``i = rep * P + p``) and a Python
-loop runs them.  Other block kinds, MoE and embedding/VLM input raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+dense FFN and ``"rwkv"`` blocks (time-mix and channel-mix), on token
+input.  The reference stacks each in-period position's parameters over
+repeats and scans them; here the blocks are an ``nn.ModuleList`` in layer
+order (layer ``i = rep * P + p``) and a Python loop runs them.  Mamba
+blocks, MoE and embedding/VLM input raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 
 The decode state keeps its write position as a host int, so a step never
-reads the device; caches are updated in place.
+reads the device; attention caches are updated in place, RWKV states
+replaced by each call's new state.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.models.layers import (
     ffn_shapes,
     rmsnorm,
 )
+from repro_torch.models.ssm import RWKV, rwkv_channel_mix, rwkv_state_init, rwkv_time_mix
 
 #: ROADMAP.md, queue 1, item 10: the parts of the LM stack still to port
 _NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 10: {})"
@@ -37,10 +40,10 @@ _NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 10: {})"
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice does not port."""
     kinds = set(cfg.block_pattern)
-    if kinds - {"attn"}:
-        item = "rwkv6 with kernel 5" if "rwkv" in kinds else "mamba"
+    if kinds - {"attn", "rwkv"}:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds - {'attn'})} " + _NOT_PORTED.format(item))
+            f"{cfg.name}: block kinds {sorted(kinds - {'attn', 'rwkv'})} "
+            + _NOT_PORTED.format("mamba"))
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE " + _NOT_PORTED.format("MoE"))
     if cfg.input_kind != "tokens" or cfg.family == "vlm":
@@ -76,15 +79,42 @@ class Block(nn.Module):
         self.norm2 = ones()
         self.ffn = FFN(cfg, dtype, device, generator)
 
-    def forward(self, x, *, cache=None, cache_index=None, use_flash=False):
+    def forward(self, x, cache=None, *, pos=0, use_flash=False):
+        """Returns (x, cache); ``cache`` (k, v) is written in place at ``pos``."""
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         h = rmsnorm(x, self.norm1, cfg.norm_eps)
-        y, cache = self.attn(h, cache=cache, cache_index=cache_index, use_flash=use_flash)
+        y, cache = self.attn(h, cache=cache, cache_index=None if cache is None else pos,
+                             use_flash=use_flash)
         x = x + y.to(x.dtype)
         h = rmsnorm(x, self.norm2, cfg.norm_eps)
         x = x + self.ffn(h, cdt).to(x.dtype)
         return x, cache
+
+
+class RWKVBlock(nn.Module):
+    """norm -> time-mix -> residual, norm -> channel-mix -> residual; the
+    channel-mix weights live in the ``rwkv`` parameters, as in the reference."""
+
+    def __init__(self, cfg, dtype, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device),
+                                    requires_grad=False)
+        self.norm1 = ones()
+        self.rwkv = RWKV(cfg, dtype, device, generator)
+        self.norm2 = ones()
+
+    def forward(self, x, state: dict | None = None, *, pos=0, use_flash=False):
+        """Returns (x, new state); without a state, from a zero float32 one.
+        ``pos`` and ``use_flash`` are the attention block's, unused here."""
+        cfg = self.cfg
+        if state is None:
+            state = rwkv_state_init(cfg, x.shape[0], device=x.device)
+        y, state = rwkv_time_mix(rmsnorm(x, self.norm1, cfg.norm_eps), self.rwkv, cfg, state)
+        x = x + y.to(x.dtype)
+        y, state = rwkv_channel_mix(rmsnorm(x, self.norm2, cfg.norm_eps), self.rwkv, cfg, state)
+        return x + y.to(x.dtype), state
 
 
 class Transformer(nn.Module):
@@ -102,8 +132,10 @@ class Transformer(nn.Module):
         dev = resolve_device(device if generator is None else generator.device)
         dtype = getattr(torch, cfg.param_dtype)
         self.cfg = cfg
-        self.blocks = nn.ModuleList(Block(cfg, dtype, dev, generator)
-                                    for _ in range(cfg.n_layers))
+        kinds = {"attn": Block, "rwkv": RWKVBlock}
+        self.blocks = nn.ModuleList(
+            kinds[cfg.block_pattern[i % cfg.pattern_period]](cfg, dtype, dev, generator)
+            for i in range(cfg.n_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=dev),
                                        requires_grad=False)
         if generator is not None:
@@ -145,12 +177,14 @@ def unembed(model: Transformer, cfg: ModelConfig, h: torch.Tensor) -> torch.Tens
 
 
 def _run_blocks(model, x, *, state=None, use_flash=False):
+    """The blocks in layer order, each with its own entry of ``state``;
+    ``use_flash`` selects the attention kernels (RWKV blocks run their
+    kernel either way, as the reference ignores the flag there)."""
     for i, block in enumerate(model.blocks):
         if state is None:
             x, _ = block(x, use_flash=use_flash)
         else:
-            x, _ = block(x, cache=state.caches[i], cache_index=state.pos,
-                         use_flash=use_flash)
+            x, state.layers[i] = block(x, state.layers[i], pos=state.pos, use_flash=use_flash)
     return x
 
 
@@ -158,7 +192,7 @@ def _run_blocks(model, x, *, state=None, use_flash=False):
 def forward(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=False,
             return_hidden=False):
     """Full forward -> (logits (B, S, V), aux), or (hidden, aux); aux is 0
-    (no MoE in this slice)."""
+    (no MoE yet)."""
     x = embed_inputs(model, cfg, batch)
     x = _run_blocks(model, x, use_flash=use_flash)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
@@ -195,19 +229,24 @@ def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=Fals
 
 @dataclasses.dataclass
 class DecodeState:
-    """Per-layer (k, v) caches, each (B, max_len, n_kv, hd), and the write
-    position ``pos`` (a host int; tokens appended so far)."""
+    """Per layer, that block's state: the attention block's (k, v) cache,
+    each (B, max_len, n_kv, hd), or the RWKV block's state
+    (``ssm.rwkv_state_init``); and the write position ``pos`` (a host int;
+    tokens appended so far)."""
 
-    caches: list
+    layers: list
     pos: int = 0
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       cache_dtype=torch.bfloat16, device="cuda") -> DecodeState:
+    """Zero caches and states; RWKV's carried tokens in ``cache_dtype``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return DecodeState([init_cache(cfg, batch, max_len, cache_dtype, dev)
-                        for _ in range(cfg.n_layers)])
+    init = {"attn": lambda: init_cache(cfg, batch, max_len, cache_dtype, dev),
+            "rwkv": lambda: rwkv_state_init(cfg, batch, cache_dtype, dev)}
+    return DecodeState([init[cfg.block_pattern[i % cfg.pattern_period]]()
+                        for i in range(cfg.n_layers)])
 
 
 @torch.no_grad()
@@ -215,8 +254,8 @@ def decode_step(model: Transformer, cfg: ModelConfig, state: DecodeState, batch:
                 use_flash=False):
     """Append S new tokens (S = 1 to decode) -> (logits (B, S, V), state).
 
-    The caches are written in place; the returned state is ``state`` with
-    ``pos`` advanced by S.
+    The caches are written in place and the RWKV states replaced; the
+    returned state is ``state`` with ``pos`` advanced by S.
     """
     x = embed_inputs(model, cfg, batch)
     x = _run_blocks(model, x, state=state, use_flash=use_flash)
@@ -236,7 +275,7 @@ def prefill(model: Transformer, cfg: ModelConfig, batch: dict, max_len: int, *,
 
 
 __all__ = [
-    "Transformer", "Block", "FFN", "DecodeState", "check_supported", "init_params",
+    "Transformer", "Block", "RWKVBlock", "FFN", "DecodeState", "check_supported", "init_params",
     "embed_inputs", "unembed", "forward", "loss_fn", "init_decode_state",
     "decode_step", "prefill",
 ]

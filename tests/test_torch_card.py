@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.local_reduce import local_reduce, local_reduce_ref
+from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
 from repro_torch.kernels.segment_reduce import (
     PAD_KEY,
     segment_reduce,
@@ -162,3 +163,71 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take():
         decode_attention(qb, kb.transpose(1, 2).contiguous().transpose(1, 2), kb, 8)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(qb[..., :40], kb[..., :40], kb[..., :40])
+
+
+WKV6_TOL = 2e-3  # tests/test_kernels.py::TestWKV6
+
+
+def _wkv6_inputs(seed, B, T, H, hs, dtype=torch.float32, w_range=(0.05, 0.999)):
+    rng = np.random.default_rng(seed)
+    r, v = (rng.normal(size=(B, T, H, hs)) for _ in range(2))
+    k = rng.normal(size=(B, T, H, hs)) * 0.5
+    w = rng.uniform(*w_range, size=(B, T, H, hs))
+    u = rng.normal(size=(H, hs)) * 0.3
+    cuda = lambda a, dt=torch.float32: torch.from_numpy(a.astype(np.float32)).to(dt).cuda()
+    return cuda(r, dtype), cuda(k, dtype), cuda(v, dtype), cuda(w), cuda(u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hs,chunk,dtype,with_state", [
+    (2, 64, 2, 32, 16, torch.float32, False),     # the TestWKV6 cases
+    (1, 100, 4, 64, 32, torch.float32, False),    # ragged T
+    (2, 32, 1, 16, 32, torch.float32, False),
+    (1, 128, 2, 64, 64, torch.float32, False),
+    (2, 256, 3, 64, 64, torch.bfloat16, True),    # the model's chunk, carried state
+    (1, 1000, 40, 64, 64, torch.bfloat16, True),  # ragged, value columns split
+    (3, 77, 2, 32, 64, torch.float32, True),      # T shorter than one chunk
+])
+def test_wkv6_matches_plain(B, T, H, hs, chunk, dtype, with_state):
+    _needs_card()
+    r, k, v, w, u = _wkv6_inputs(T + hs, B, T, H, hs, dtype)
+    state = None
+    if with_state:
+        g = torch.Generator(device="cuda").manual_seed(T)
+        state = torch.randn((B, H, hs, hs), generator=g, device="cuda") * 0.5
+    for out_dtype in {dtype, torch.float32}:
+        before = wkv6.launches
+        out, S = wkv6(r, k, v, w, u, chunk=chunk, state=state, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert wkv6.launches == before + 1
+        want, want_S = wkv6_chunked_ref(r, k, v, w, u, chunk=chunk, state=state,
+                                        out_dtype=out_dtype)
+        assert out.dtype == out_dtype and S.dtype == torch.float32
+        # bfloat16 output: the tolerance plus one ulp of the value
+        rtol = WKV6_TOL + (2**-7 if out_dtype == torch.bfloat16 else 0)
+        torch.testing.assert_close(out.float(), want.float(), rtol=rtol, atol=WKV6_TOL)
+        torch.testing.assert_close(S, want_S, rtol=WKV6_TOL, atol=WKV6_TOL)
+
+
+@pytest.mark.cuda
+def test_wkv6_strong_decay_stays_finite():
+    _needs_card()
+    r, k, v, w, u = _wkv6_inputs(5, 1, 64, 1, 16, w_range=(1e-6, 1e-6))
+    out, S = wkv6(r, k, v, w, u, chunk=16)
+    want, want_S = wkv6_chunked_ref(r, k, v, w, u, chunk=16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(S).all()
+    torch.testing.assert_close(out, want, rtol=WKV6_TOL, atol=WKV6_TOL)
+    torch.testing.assert_close(S, want_S, rtol=WKV6_TOL, atol=WKV6_TOL)
+
+
+@pytest.mark.cuda
+def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take():
+    _needs_card()
+    r, k, v, w, u = _wkv6_inputs(6, 1, 16, 2, 16)
+    with pytest.raises(TypeError, match="float32"):
+        wkv6(r, k, v, w.bfloat16(), u)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv6(r, k, v, w, u, chunk=128)

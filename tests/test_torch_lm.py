@@ -195,7 +195,7 @@ def test_cache_write_past_max_len_clamps_like_reference(use_flash, max_len, prom
     assert state.pos == int(jstate["pos"]) == max_len + 2
     for i in range(cfg.n_layers):
         for j, name in enumerate("kv"):
-            _close(state.caches[i][j], jstate["layers"]["pos0"]["kv"][name][i])
+            _close(state.layers[i][j], jstate["layers"]["pos0"]["kv"][name][i])
 
 
 def test_pad_vocab_columns_masked():
@@ -238,7 +238,7 @@ def test_server_tokens_match_reference_where_decided(models):
 
 
 def test_unported_configs_raise():
-    for arch in ("granite-moe-1b-a400m", "rwkv6-3b", "internvl2-26b"):
+    for arch in ("granite-moe-1b-a400m", "jamba-v0.1-52b", "internvl2-26b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tf.Transformer(smoke_config(arch), device="cpu")
 
