@@ -5,7 +5,9 @@
 
 Phases, one or more printed lines each:
 
-1. build: compile the hand-written kernels from ``src/repro_torch/csrc``;
+1. build: compile the hand-written kernels from ``src/repro_torch/csrc``,
+   print ptxas's registers and spills, and require HGMMA (wgmma) and
+   UTMALDG (TMA loads) in the SASS of every bfloat16 attention kernel;
 2. kernels: hold each kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes and on edge rows (all-PAD, one
    key, a run across many tiles, sums above 2**24), with its time, the
@@ -35,9 +37,9 @@ Phases, one or more printed lines each:
    of 2048-token prompts, decode-vs-forward logits, the 28-layer logits of
    the kernel path against the same path with the kernels' plain versions
    (elementwise) and against the plain ``use_flash=False`` path, 2048-token
-   scoring logits and loss, attention launch counts equal to 28 per
-   decode_step and forward call the phase drives, and one decode step's
-   device time by kernel;
+   scoring logits, loss and time, attention launch counts equal to 28 per
+   decode_step and forward call the phase drives, and the device time by
+   kernel of the long prompts' prefill and of one decode step;
 9. wkv6: the WKV6 kernel against its plain version (the chunked form) on
    the card, float32 at the reference test's shapes (ragged T, w = 1e-6),
    bf16 r, k, v with a non-zero initial state at the rwkv6-3b long-prompt
@@ -165,8 +167,40 @@ def phase_build() -> None:
     _build.load()
     log("build", f"built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     for line in compiler_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(word in line for word in ("registers", "spill", "entry function", "warning",
+                                         "Performance Loss")) \
+                or line.startswith("=="):
             log("build", line.strip())
+    hopper_sass(path, Path(_build._nvcc()).parent / "cuobjdump")
+
+
+#: the bfloat16 attention kernels, each of which must run wgmma on TMA tiles
+HOPPER_KERNELS = ("flash_attention_bf16", "decode_attention_bf16")
+
+
+def hopper_sass(path: Path, cuobjdump: Path) -> None:
+    """Each instantiation of the bfloat16 attention kernels must hold
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS."""
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    found: dict[str, dict[str, list]] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+        elif name and any(k in name for k in HOPPER_KERNELS):
+            for op in ("HGMMA", "UTMALDG"):
+                if op in line:
+                    found.setdefault(name, {"HGMMA": [], "UTMALDG": []})[op].append(
+                        line.split("*/", 1)[-1].split("/*")[0].strip())
+    per_kernel = {k: [n for n in found if k in n] for k in HOPPER_KERNELS}
+    if any(len(names) != 2 for names in per_kernel.values()) or any(
+            not ops["HGMMA"] or not ops["UTMALDG"] for ops in found.values()):
+        raise AssertionError(f"bf16 attention kernels without HGMMA/UTMALDG in SASS: "
+                             f"{ {n: {op: len(v) for op, v in ops.items()} for n, ops in found.items()} }")
+    for n, ops in sorted(found.items()):
+        log("build", f"SASS {n}: {len(ops['HGMMA'])} HGMMA, e.g. '{ops['HGMMA'][0]}'; "
+            f"{len(ops['UTMALDG'])} UTMALDG, e.g. '{ops['UTMALDG'][0]}'")
 
 
 def phase_kernels() -> dict:
@@ -577,11 +611,11 @@ def phase_attention() -> dict:
             log("attention", f"{name} {case} (bfloat16): the check rejects {rejected} "
                 f"(output scale {float(want.float().abs().max()):.3f})")
             errs[name] = max(errs[name], err)
-            ms = device_ms(lambda: kern(q, k, v))
+            ms = device_ms(lambda: kern(q, k, v), iters=50, warmup=10)
             plain_ms = device_ms(lambda: ref(q, k, v), iters=3, warmup=1)
             lib_out = lib(q, k, v).transpose(1, 2)
             lib_err = float((lib_out.float() - want.float()).abs().max())
-            library_ms = device_ms(lambda: lib(q, k, v))
+            library_ms = device_ms(lambda: lib(q, k, v), iters=50, warmup=10)
             log("attention", f"{name} {case} (bfloat16): err {err:.2e}, row err "
                 f"{row_err:.2e} (tolerance 5e-2, rows 1e-2); "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms "
@@ -737,6 +771,16 @@ def phase_serve() -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if toks.shape != (8, 128):
         raise AssertionError(f"long-prompt batch returned {tuple(toks.shape)}")
+    prefills = []
+    for _ in range(3):  # the prefill alone: serve one token
+        long_server.serve(prompts, 1)
+        prefills.append(long_server.last_prefill_s)
+    steps += 3
+    log("serve", f"prefill of the same 8 x 2048-token prompts, three more times: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in prefills)} ms")
+    profiled_breakdown(f"{cfg.name} prefill of the 8 x 2048-token prompts",
+                       lambda: long_server.serve(prompts, 1))
+    steps += 1
     del long_server
     torch.cuda.empty_cache()
 
@@ -829,6 +873,17 @@ def phase_serve() -> dict:
         raise AssertionError(f"scoring loss {loss} vs plain {ref}")
     log("serve", f"2048-token scoring loss {loss:.5f}, plain path {ref:.5f} "
         f"(|diff| {abs(loss - ref):.2e}, tolerance 2e-2)")
+    score = build_eval_step(cfg, StepConfig(use_flash=True, logits_chunk=512))
+    walls = []
+    for _ in range(4):  # a warm-up, then three timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score(model, {"tokens": seq})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    forwards += 4
+    log("serve", f"2048-token scoring time (eval step, kernel path, fenced): "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} ms")
 
     launches = {"decode_attention": decode_attention.launches,
                 "flash_attention": flash_attention.launches}
@@ -843,24 +898,16 @@ def phase_serve() -> dict:
     return launches
 
 
-def serve_breakdown(server) -> None:
-    """One batch-8 decode step at 512 cached tokens under torch.profiler."""
+def profiled_breakdown(what: str, fn) -> None:
+    """Runs ``fn()`` once under torch.profiler; logs its wall time, the
+    device's busy time and share, the launches and the longest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import transformer as tf
-
-    cfg = server.cfg
-    state = tf.init_decode_state(cfg, 8, 1024, device="cuda")
-    tok = torch.zeros((8, 512), dtype=torch.int64, device="cuda")
-    _, state = server.decode(server.model, state, {"tokens": tok})
-    step = {"tokens": tok[:, :1]}
-    for _ in range(3):
-        server.decode(server.model, state, step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.decode(server.model, state, step)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel: dict[str, list] = {}
@@ -871,11 +918,25 @@ def serve_breakdown(server) -> None:
             entry[1] += 1
     busy = sum(us for us, _ in by_kernel.values())
     n = sum(c for _, c in by_kernel.values())
-    log("breakdown", f"{cfg.name} decode step, batch 8, 512 cached tokens, under "
-        f"torch.profiler: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-        f"({busy / wall_us:.0%}), {n} kernel launches")
+    log("breakdown", f"{what}, under torch.profiler: wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms ({busy / wall_us:.0%}), {n} kernel launches")
     for kname, (us, c) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]:
         log("breakdown", f"  {us / 1e3:8.3f} ms  {c:4d}x  {kname[:90]}")
+
+
+def serve_breakdown(server) -> None:
+    """One batch-8 decode step at 512 cached tokens under torch.profiler."""
+    from repro_torch.models import transformer as tf
+
+    cfg = server.cfg
+    state = tf.init_decode_state(cfg, 8, 1024, device="cuda")
+    tok = torch.zeros((8, 512), dtype=torch.int64, device="cuda")
+    _, state = server.decode(server.model, state, {"tokens": tok})
+    step = {"tokens": tok[:, :1]}
+    for _ in range(3):
+        server.decode(server.model, state, step)
+    profiled_breakdown(f"{cfg.name} decode step, batch 8, 512 cached tokens",
+                       lambda: server.decode(server.model, state, step))
 
 
 #: WKV6 output and final state against the plain version: elementwise at

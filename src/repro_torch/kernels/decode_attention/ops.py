@@ -10,29 +10,30 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import ATTENTION_DTYPES, check_attention
 
-ROWS, KEYS = 64, 64  # query rows per block, keys per tile (attention_tile.cuh)
+ROWS, KEYS = 128, 128  # query rows per block, keys per K/V tile (attention_hopper.cuh)
 PART_WIDTH = 128  # row width of the float32 partials (kMaxHD)
 
 
 @functools.cache
 def target_blocks(device_index: int) -> int:
-    """Blocks to aim for when splitting the keys: two waves of two blocks
-    per SM of the card."""
-    return 4 * torch.cuda.get_device_properties(device_index).multi_processor_count
+    """Blocks to aim for when splitting the keys: one wave, since a bfloat16
+    block's 225 KB of shared memory fits one block per SM."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def split_plan(B: int, Sq: int, Hq: int, n_kv: int, S_max: int,
                kv_len: int, target: int) -> tuple[int, int]:
     """(n_splits, keys per split) for the kernel's grid.
 
-    One split while the row tiles alone fill the card (prefill); else the
-    visible keys are cut into up to ``target / row blocks`` splits of whole
-    64-key tiles (decode).
+    One split while the row tiles alone fill half the card or more
+    (prefill); else the visible keys are cut into ``target // row blocks``
+    splits of whole 128-key tiles (decode), so that the grid is at most one
+    wave of ``target`` blocks.  The float32 tile's 64-key tiles divide them.
     """
     G = Hq // n_kv
     row_blocks = B * n_kv * -(-G * Sq // ROWS)
     key_tiles = max(1, -(-min(S_max, kv_len) // KEYS))
-    n_splits = max(1, min(key_tiles, -(-target // row_blocks)))
+    n_splits = max(1, min(key_tiles, target // row_blocks))
     tiles_per_split = -(-key_tiles // n_splits)
     n_splits = -(-key_tiles // tiles_per_split)  # no empty split
     return n_splits, tiles_per_split * KEYS

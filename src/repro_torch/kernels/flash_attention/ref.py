@@ -6,6 +6,12 @@ logits and softmax, masked logits at -1e30, masked probabilities exactly 0,
 with no visible key gives 0), the result cast to the input dtype.  The
 reference's ``attention_ref`` rounds ``p`` to the input dtype before P.V
 instead; in bfloat16 the two differ within its tests' 5e-2.
+
+The kernel's bfloat16 path rounds ``p`` once to bfloat16 into P.V, as
+``attention_ref`` does, and sums ``l`` over the float32 ``p`` (its remainder
+product, which kept 16 bits of ``p``, was dropped; PERF.md gives the
+numbers); it is held against this version to 5e-2 elementwise and 1e-2 per
+row.  Its float32 path keeps ``p`` float32, as here, and is held to 2e-5.
 """
 
 from __future__ import annotations

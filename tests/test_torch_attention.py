@@ -125,12 +125,46 @@ def test_masked_row_gives_zero_not_nan():
 
 
 @pytest.mark.parametrize("B,Sq,Hq,nkv,S_max,kv_len,want", [
-    (8, 1, 16, 8, 32768, 32768, (9, 57 * 64)),   # decode: split the cache
-    (8, 2048, 16, 8, 4096, 2048, (1, 32 * 64)),  # prefill: rows fill the card
-    (1, 1, 16, 8, 256, 9, (1, 64)),              # one tile
-    (1, 1, 16, 8, 10, 12, (1, 64)),              # kv_len past S_max
+    (8, 1, 16, 8, 32768, 32768, (2, 128 * 128)),  # decode: split the cache
+    (1, 1, 16, 8, 32768, 32768, (16, 16 * 128)),  # decode at batch 1: more splits
+    (8, 2048, 16, 8, 4096, 2048, (1, 16 * 128)),  # prefill: rows fill the card
+    (1, 1, 16, 8, 256, 9, (1, 128)),              # one tile
+    (1, 1, 16, 8, 10, 12, (1, 128)),              # kv_len past S_max
 ])
 def test_split_plan(B, Sq, Hq, nkv, S_max, kv_len, want):
-    n_splits, split_keys = split_plan(B, Sq, Hq, nkv, S_max, kv_len, 4 * 132)
+    n_splits, split_keys = split_plan(B, Sq, Hq, nkv, S_max, kv_len, 132)
     assert (n_splits, split_keys) == want
-    assert split_keys % 64 == 0 and (n_splits - 1) * split_keys < min(S_max, kv_len)
+    assert split_keys % 128 == 0 and (n_splits - 1) * split_keys < min(S_max, kv_len)
+
+
+@pytest.mark.parametrize("B,Sq,Hq,nkv,S_max,kv_len", [
+    (8, 1, 16, 8, 32768, 32768),    # decode serving shape: G * Sq = 2 rows
+    (8, 2048, 16, 8, 4096, 2048),   # prefill serving shape
+    (1, 8192, 16, 8, 8192, 8192),   # the flash shape as a full cache
+    (2, 1, 16, 8, 8192, 6000),      # the card tests' edge shapes
+    (1, 200, 16, 8, 512, 300),
+    (2, 40, 16, 4, 255, 129),       # 128-row tiles across query heads, ragged S
+    (3, 1, 4, 2, 96, 7),
+    (1, 4, 4, 2, 128, 140),         # kv_len past S_max
+])
+@pytest.mark.parametrize("target", [132, 4 * 132])
+def test_split_plan_tiles_the_visible_keys(B, Sq, Hq, nkv, S_max, kv_len, target):
+    """Every split is a whole number of 128-key tiles, none is empty, the
+    splits cover the visible keys, and every tile of every split holds a
+    key that some row of its block sees (decode: the last query sees every
+    visible key, so each split's first key must be one), and the grid is
+    at most one wave of ``target`` blocks."""
+    key_end = min(S_max, kv_len)
+    n_splits, split_keys = split_plan(B, Sq, Hq, nkv, S_max, kv_len, target)
+    assert n_splits >= 1 and split_keys % 128 == 0
+    assert (n_splits - 1) * split_keys < key_end <= n_splits * split_keys
+    last_query = kv_len - 1  # the position the block's last row sits at
+    for split in range(n_splits):
+        tiles = range(split * split_keys, min((split + 1) * split_keys, key_end), 128)
+        assert tiles and all(t <= min(last_query, key_end - 1) for t in tiles)
+    row_tiles = B * nkv * -(-(Hq // nkv) * Sq // 128)
+    assert row_tiles * n_splits <= max(target, row_tiles)  # at most one wave
+    if 2 * row_tiles > target:
+        assert n_splits == 1  # the rows alone fill half the card or more
+    elif key_end > 128:
+        assert n_splits > 1  # decode at G * Sq = 2: the keys are split

@@ -105,6 +105,11 @@ def _assert_close(got, want, dtype):
     (1, 64, 192, 2, 2, 80, False),      # Sk > Sq, head_dim 80
     (1, 128, 128, 16, 2, 128, True),    # G = 8
     (1, 300, 300, 2, 1, 16, True),      # head_dim 16, tiles across G
+    (1, 129, 255, 4, 2, 128, False),    # Sq, Sk not multiples of the 128-key tile
+    (1, 40, 40, 8, 2, 128, True),       # a 128-row tile spans the G = 4 query heads
+    (2, 129, 129, 4, 2, 80, True),      # head_dim 80: a partial second swizzle box
+    (2, 255, 255, 4, 2, 64, True),      # head_dim 64, B > 1 with a ragged S
+    (3, 255, 255, 4, 1, 128, True),     # a batch's last tile must not read the next
 ])
 def test_flash_attention_matches_plain(dtype, B, Sq, Sk, Hq, nkv, hd, causal):
     _needs_card()
@@ -127,6 +132,11 @@ def test_flash_attention_matches_plain(dtype, B, Sq, Sk, Hq, nkv, hd, causal):
     (2, 1, 8192, 16, 8, 128, 6000),     # decode: keys split across blocks
     (1, 200, 512, 16, 8, 128, 300),     # prefill rows after 100 cached
     (1, 4, 128, 4, 2, 32, 140),         # kv_len > S_max: every slot visible
+    (2, 40, 255, 8, 2, 128, 200),       # rows span the G = 4 heads, ragged S_max
+    (2, 129, 300, 4, 2, 80, 255),       # head_dim 80, 129 rows after 126 cached
+    (3, 1, 255, 16, 8, 64, 129),        # head_dim 64, B > 1, split at a ragged end
+    (2, 1, 4096, 16, 8, 128, 4000),     # decode split, the cache's tail unwritten
+    (2, 255, 255, 4, 2, 128, 255),      # prefill of a whole ragged cache, B > 1
 ])
 def test_decode_attention_matches_plain(dtype, B, Sq, S_max, Hq, nkv, hd, kv_len):
     _needs_card()
@@ -150,6 +160,28 @@ def test_decode_attention_ignores_garbage_beyond_kv_len():
     out2 = decode_attention(q, k, v, 50)
     torch.cuda.synchronize()
     assert torch.equal(out1, out2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,S_max,Hq,nkv,hd,kv_len", [
+    (2, 1, 8192, 16, 8, 128, 3000),     # decode, keys split across blocks
+    (2, 100, 1024, 16, 8, 128, 300),    # prefill rows after 200 cached
+    (1, 4, 512, 4, 2, 80, 131),         # head_dim 80, kv_len inside a key tile
+])
+def test_decode_attention_ignores_nan_past_kv_len(dtype, B, Sq, S_max, Hq, nkv, hd, kv_len):
+    """Cache slots past kv_len poisoned with NaN: the output stays finite and
+    equal, bit for bit, to the run over a clean cache."""
+    _needs_card()
+    q, k, v = _attn_inputs(kv_len, dtype, (B, Sq, Hq, hd), (B, S_max, nkv, hd),
+                           (B, S_max, nkv, hd))
+    clean = decode_attention(q, k, v, kv_len)
+    k[:, kv_len:] = float("nan")
+    v[:, kv_len:] = float("nan")
+    poisoned = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(poisoned).all()
+    assert torch.equal(poisoned, clean)
 
 
 @pytest.mark.cuda
