@@ -503,7 +503,7 @@ def check_rejects(name, case, want, wrongs: dict) -> str:
 def wrong_outputs(q, k, v, ref, want, n_visible: int) -> dict:
     """Outputs of plausible kernel faults, from the plain version: all
     zeros; at decode (one query) one key split dropped from the combine;
-    else the values of one 64-key tile lost for the last rows."""
+    else the values of the last 128-key tile lost, whole or its first 64 keys."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_ref,
         split_plan,
@@ -522,7 +522,9 @@ def wrong_outputs(q, k, v, ref, want, n_visible: int) -> dict:
     else:
         lost = v.clone()
         lost[:, n_visible - 128:n_visible - 64] = 0
-        wrongs["one tile of values lost"] = ref(q, k, lost)
+        wrongs["64 keys of values lost"] = ref(q, k, lost)
+        lost[:, n_visible - 64:n_visible] = 0
+        wrongs["one 128-key tile of values lost"] = ref(q, k, lost)
     return wrongs
 
 

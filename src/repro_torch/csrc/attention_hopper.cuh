@@ -38,10 +38,10 @@
 //
 // Rounding of p.  p goes into P V rounded once to bfloat16, as SDPA and
 // FlashAttention do; the sums l are taken over the float32 p.  The plain
-// versions keep p float32.  Built with -DATTENTION_P_REMAINDER=1 the tile
-// adds a second P V product on p's bfloat16 remainder (16 bits of p's
-// mantissa, 1.5x the tensor-core work), the previous tile's numerics;
-// PERF.md gives the numbers that dropped it.
+// versions keep p float32.  A second P V product on p's bfloat16 remainder
+// (the earlier mma.sync tile's numerics, 1.5x the tensor-core work) was
+// measured and dropped: 26-39 % more time at the compute-bound shapes and
+// no check that needs it (PERF.md, the attention kernels' findings).
 
 #pragma once
 
@@ -53,10 +53,6 @@
 #include <type_traits>
 
 #include "attention_tile.cuh"
-
-#ifndef ATTENTION_P_REMAINDER
-#define ATTENTION_P_REMAINDER 0
-#endif
 
 namespace attention_hopper {
 
@@ -374,9 +370,6 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* kmap, const C
 
     float o[HD / 2], s[kKeys / 2];
     uint32_t pf[kKeys / 16][4];  // P of the tile whose P V product is next
-#if ATTENTION_P_REMAINDER
-    uint32_t pr[kKeys / 16][4];  // what the bfloat16 P missed
-#endif
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
 #pragma unroll
@@ -401,12 +394,6 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* kmap, const C
       for (int kk = 0; kk < kKeys / 16; ++kk) {
         wgmma_rs<HD>(o, pf[kk], desc_mn_major(vs + kk * 16 * kAtomRowBytes));
       }
-#if ATTENTION_P_REMAINDER
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        wgmma_rs<HD>(o, pr[kk], desc_mn_major(vs + kk * 16 * kAtomRowBytes));
-      }
-#endif
     };
 
     // Scale, mask (kMask: a tile crossing the diagonal, key_end or the
@@ -469,20 +456,12 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* kmap, const C
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-#if ATTENTION_P_REMAINDER
-          const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&pf[kk][r]);
-          pr[kk][r] = pack_bf16(s[8 * kk + 2 * r] - __low2float(h),
-                                s[8 * kk + 2 * r + 1] - __high2float(h));
-#endif
         }
       }
     };
     auto fence_pv = [&]() {
       fence_regs(o);
       fence_regs(pf);
-#if ATTENTION_P_REMAINDER
-      fence_regs(pr);
-#endif
     };
 
     // The products are issued in turns (pingpong) when both consumers

@@ -25,11 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-#: extra ``-D`` flags for experiments, e.g. ``-DATTENTION_P_REMAINDER=1``
-#: (``csrc/attention_hopper.cuh``); they go into the library's name
-DEFINES = os.environ.get("REPRO_TORCH_NVCC_DEFINES", "").split()
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v", *DEFINES]
+              "-Xptxas=-v"]
 
 
 def _nvcc() -> str:
