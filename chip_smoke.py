@@ -7,7 +7,9 @@ Phases, one or more printed lines each:
 
 1. build: compile the hand-written kernels from ``src/repro_torch/csrc``,
    print ptxas's registers and spills, and require HGMMA (wgmma) and
-   UTMALDG (TMA loads) in the SASS of every bfloat16 attention kernel;
+   UTMALDG (TMA loads) in the SASS of every bfloat16 attention kernel, and
+   TF32 tensor-core MMAs and LDGSTS (cp.async) with no spills in both WKV6
+   kernels;
 2. kernels: hold each kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes and on edge rows (all-PAD, one
    key, a run across many tiles, sums above 2**24), with its time, the
@@ -40,13 +42,15 @@ Phases, one or more printed lines each:
    scoring logits, loss and time, attention launch counts equal to 28 per
    decode_step and forward call the phase drives, and the device time by
    kernel of the long prompts' prefill and of one decode step;
-9. wkv6: the WKV6 kernel against its plain version (the chunked form) on
-   the card, float32 at the reference test's shapes (ragged T, w = 1e-6),
+9. wkv6: the WKV6 kernel pair against its plain version (the chunked form)
+   on the card, float32 at the reference test's shapes (ragged T, w = 1e-6),
    bf16 r, k, v with a non-zero initial state at the rwkv6-3b long-prompt
-   batch and one 32768-token sequence, elementwise and row by row, with
-   proof that the check rejects an ignored initial state, a dropped bonus
+   batch, one 2048-token and one 32768-token sequence, elementwise and row
+   by row, and the long-prompt batch with w at its 1e-8 clamp against the
+   same chunked form computed in float64, with proof
+   that the check rejects an ignored initial state, a dropped bonus
    diagonal and a lost chunk state update; its time, the plain version's
-   and the bound;
+   and the bound with both its terms;
 10. rwkv: the rwkv6-3b serving and scoring path at full width (32 layers):
    the same serving steps as phase 8, decode-vs-forward logits across
    chunks, each layer's wkv6 call held against its plain version, the
@@ -70,7 +74,6 @@ import math
 import subprocess
 import sys
 import time
-import unittest.mock
 from pathlib import Path
 
 import numpy as np
@@ -174,33 +177,55 @@ def phase_build() -> None:
     hopper_sass(path, Path(_build._nvcc()).parent / "cuobjdump")
 
 
-#: the bfloat16 attention kernels, each of which must run wgmma on TMA tiles
-HOPPER_KERNELS = ("flash_attention_bf16", "decode_attention_bf16")
+#: kernels whose SASS must hold Hopper's instructions: name -> (number of
+#: instantiations, {what: substrings one SASS line must all hold}, whether
+#: it must hold no local-memory instruction (LDL/STL), so no spill).  The
+#: bfloat16 attention kernels run wgmma on TMA tiles; each WKV6 kernel runs
+#: TF32 tensor-core MMAs on tiles loaded by cp.async (LDGSTS), and spills
+#: nothing.
+HOPPER_KERNELS = {
+    "flash_attention_bf16": (2, {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)}, False),
+    "decode_attention_bf16": (2, {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)}, False),
+    "wkv6_states": (2, {"TF32 MMA": ("MMA", "TF32"), "LDGSTS": ("LDGSTS",)}, True),
+    "wkv6_outputs": (3, {"TF32 MMA": ("MMA", "TF32"), "LDGSTS": ("LDGSTS",)}, True),
+}
 
 
 def hopper_sass(path: Path, cuobjdump: Path) -> None:
-    """Each instantiation of the bfloat16 attention kernels must hold
-    HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS."""
+    """Each instantiation of HOPPER_KERNELS must hold its instructions in
+    its SASS, and those marked so no local-memory access: a spill would
+    show as LDL/STL."""
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=600).stdout
     found: dict[str, dict[str, list]] = {}
-    name = None
+    name = kernel = None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-        elif name and any(k in name for k in HOPPER_KERNELS):
-            for op in ("HGMMA", "UTMALDG"):
-                if op in line:
-                    found.setdefault(name, {"HGMMA": [], "UTMALDG": []})[op].append(
-                        line.split("*/", 1)[-1].split("/*")[0].strip())
-    per_kernel = {k: [n for n in found if k in n] for k in HOPPER_KERNELS}
-    if any(len(names) != 2 for names in per_kernel.values()) or any(
-            not ops["HGMMA"] or not ops["UTMALDG"] for ops in found.values()):
-        raise AssertionError(f"bf16 attention kernels without HGMMA/UTMALDG in SASS: "
-                             f"{ {n: {op: len(v) for op, v in ops.items()} for n, ops in found.items()} }")
+            kernel = next((k for k in HOPPER_KERNELS if k in name), None)
+            if kernel:
+                found[name] = {what: [] for what in HOPPER_KERNELS[kernel][1]} | {"local": []}
+        elif kernel:
+            code = line.split("*/", 1)[-1].split("/*")[0].strip()
+            for what, parts in HOPPER_KERNELS[kernel][1].items():
+                if all(part in code for part in parts):
+                    found[name][what].append(code)
+            words = code.split()
+            op = words[1] if len(words) > 1 and words[0].startswith("@") else (words or [""])[0]
+            if HOPPER_KERNELS[kernel][2] and op.split(".")[0] in ("LDL", "STL"):
+                found[name]["local"].append(code)
+    counts = {k: sum(k in n for n in found) for k in HOPPER_KERNELS}
+    missing = {n: [what for what, lines in ops.items() if what != "local" and not lines]
+               for n, ops in found.items()}
+    if any(counts[k] != want for k, (want, _, _) in HOPPER_KERNELS.items()) or any(
+            missing.values()) or any(ops["local"] for ops in found.values()):
+        raise AssertionError(f"kernels without their Hopper instructions, or spilling, in SASS: "
+                             f"{ {n: {what: len(v) for what, v in ops.items()} for n, ops in found.items()} }")
     for n, ops in sorted(found.items()):
-        log("build", f"SASS {n}: {len(ops['HGMMA'])} HGMMA, e.g. '{ops['HGMMA'][0]}'; "
-            f"{len(ops['UTMALDG'])} UTMALDG, e.g. '{ops['UTMALDG'][0]}'")
+        log("build", f"SASS {n}: " + "; ".join(
+            f"{len(lines)} {what}, e.g. '{lines[0]}'" for what, lines in ops.items()
+            if what != "local") + "; no LDL/STL" * any(
+                k in n and no_local for k, (_, _, no_local) in HOPPER_KERNELS.items()))
 
 
 def phase_kernels() -> dict:
@@ -945,28 +970,37 @@ def serve_breakdown(server) -> None:
 #: the tolerance of tests/test_kernels.py::TestWKV6, and per row (one
 #: (token, head) of out, one key row of S) relative to the row's norm
 WKV6_TOL, WKV6_ROW_TOL = 2e-3, 1e-2
-F32_FLOPS = 67e12  # H100 SXM float32 on the CUDA cores, NVIDIA data sheet
+#: H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet), over three:
+#: the WKV6 kernels run every product as 3xTF32 (three TF32 products)
+TF32X3_FLOPS = 495e12 / 3
 RWKV = dict(H=40, hs=64)  # rwkv6-3b's heads
 
 
-def wkv6_bound(B, T, H, hs, chunk, itemsize):
-    """(bound ms, bound_by, chunked flops, exps) of one WKV6 call.  The
-    bound is the larger of the float32 operations the function needs at
-    the float32 peak, the step recurrence's 5 hs^2 + 5 hs per (token, head)
-    (r S; diag(w) S + k v^T; the bonus term), and the bytes (r, k, v in
-    their dtype, w float32 read once, u and the initial state read, out
-    float32 and the final state written) at the HBM rate.  The flops and
-    pair-decay exps of the chunked form the kernel runs are information,
-    not part of the bound."""
+def wkv6_bound(B, T, H, hs, itemsize) -> dict:
+    """The bound of one WKV6 call: the larger of the operations the
+    function needs, the step recurrence's 5 hs^2 + 5 hs flops per (token,
+    head) (r S; diag(w) S + k v^T; the bonus term) at 3xTF32's tensor-core
+    rate, the units that run them, and the bytes (r, k, v in their dtype,
+    w float32 read once, u and the initial state read, out float32 and the
+    final state written) at the HBM rate; both terms are returned.  The
+    tensor-core flops and the special-function operations (exp, log) that
+    the kernel pair runs are information, not part of the bound."""
     tokens = B * T * H
     flops = tokens * (5 * hs * hs + 5 * hs)
     nbytes = tokens * hs * (3 * itemsize + 4 + 4) + H * hs * 4 + 2 * B * H * hs * hs * 4
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
-    n_chunks = math.ceil(T / chunk)
-    pairs = chunk * (chunk - 1) // 2
-    chunked = B * H * n_chunks * (4 * chunk * hs * hs + 5 * pairs * hs + 3 * chunk * hs)
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
-            chunked, B * H * n_chunks * pairs * hs)
+    t_ops, t_bytes = flops / TF32X3_FLOPS, nbytes / HBM_BYTES_PER_S
+    # Per chunk of 64 steps: the state update and the inter part, C hs^2
+    # multiply-adds each; A's blocks below the diagonal (3072 hs), inside
+    # the sub-chunks (512 hs) and A V (5120 hs).  Exps and logs: the cumsum
+    # and the decayed k of each 32-column slice of the state, and 560 hs in
+    # the outputs kernel.
+    C, n = 64, B * H * math.ceil(T / 64)
+    kernel_flops = n * (4 * C * hs * hs + (3072 + 512 + 5120) * hs)
+    sfu = n * (math.ceil(hs / 32) * (2 * C + 4) * hs + 560 * hs)
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_ops_ms": t_ops * 1e3, "bound_bytes_ms": t_bytes * 1e3,
+            "kernel_flops": kernel_flops, "sfu_ops": sfu}
 
 
 def wkv6_inputs(seed, B, T, H, hs, dtype, *, w_range=(0.05, 0.999), with_state=True):
@@ -1017,9 +1051,8 @@ def wkv6_wrong_outputs(r, k, v, w, u, S0, chunk=64) -> dict:
 
 
 def phase_wkv6() -> dict:
-    """The WKV6 kernel against its plain version on the card; returns the
-    kernels-line numbers of the serving shape."""
-    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+    """The WKV6 kernel pair against its plain version on the card; returns
+    the kernels-line numbers of the serving shape."""
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full float32
@@ -1039,9 +1072,7 @@ def phase_wkv6() -> dict:
 
     # The serving long-prompt batch, one scoring sequence and one long
     # sequence, bf16 r, k, v, float32 out (the model path), a non-zero
-    # initial state.  At B = 1 the wrapper splits each head's value columns
-    # across blocks (ops.split_count); those shapes are timed with one
-    # block per head as well.
+    # initial state; then the serving batch with w at its 1e-8 clamp.
     report = {}
     for i, B_T in enumerate(((8, 2048), (1, 2048), (1, 32768))):
         shape = (*B_T, H, hs)
@@ -1063,27 +1094,40 @@ def phase_wkv6() -> dict:
             log("wkv6", f"{shape} bf16: the check rejects " + "; ".join(said))
         del want
         ms = device_ms(kern)
-        splits = rwkv6_ops.split_count(B_T[0] * H, hs, rwkv6_ops._sm_count(0))
-        unsplit = ""
-        if splits > 1:
-            with unittest.mock.patch.object(rwkv6_ops, "split_count", lambda *a: 1):
-                ms_one = device_ms(kern)
-            unsplit = (f" (one block per head: {ms_one:.4f} ms, so the split is "
-                       f"{ms_one / ms:.2f}x as fast)")
         plain_ms = device_ms(ref, iters=3, warmup=1)
-        bound_ms, bound_by, chunked, exps = wkv6_bound(*shape, 64, 2)
-        log("wkv6", f"{shape} bf16 r, k, v, non-zero state, chunk 64, {splits} blocks per head: "
-            f"err {e:.2e}, row err {re_:.2e} (tolerance 2e-3, rows 1e-2); kernel {ms:.4f} ms"
-            f"{unsplit}, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the step "
-            f"recurrence's float32 flops at 67 TFLOP/s, bytes at 3.35 TB/s; {bound_ms / ms:.0%} "
-            f"of it reached); the chunked form does {chunked / 1e9:.3f} GFLOP and "
-            f"{exps / 1e9:.3f} G pair-decay exps; library call: none")
+        bound = wkv6_bound(*shape, 2)
+        log("wkv6", f"{shape} bf16 r, k, v, non-zero state: err {e:.2e}, row err {re_:.2e} "
+            f"(tolerance 2e-3, rows 1e-2); kernel pair {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: the step recurrence's "
+            f"flops at 3xTF32's 165 TFLOP/s {bound['bound_ops_ms']:.4f} ms, bytes at 3.35 TB/s "
+            f"{bound['bound_bytes_ms']:.4f} ms; {bound['bound_ms'] / ms:.0%} of it reached); "
+            f"the pair does {bound['kernel_flops'] / 1e9:.3f} GFLOP on tensor cores (each as "
+            f"3xTF32) and {bound['sfu_ops'] / 1e9:.3f} G exps and logs; library call: none")
         if i == 0:
-            report["wkv6"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": None, "exps": exps,
-                              "chunked_flops": chunked, "shape": list(shape)}
+            report["wkv6"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                              "shape": list(shape), "bound_ms": bound["bound_ms"],
+                              "bound_by": bound["bound_by"]}
         del r, k, v, w, u, S0
         torch.cuda.empty_cache()
+
+    # At the clamp the float32 plain version's cumulative logs (near -1180)
+    # carry an ulp of 1.2e-4, which puts it about 3e-3 from float64: the
+    # kernels are held against the same chunked form computed in float64.
+    shape = (8, 2048, H, hs)
+    r, k, v, w, u, S0 = wkv6_inputs(33, *shape, torch.bfloat16, w_range=(1e-8, 1e-8))
+    got = wkv6(r, k, v, w, u, state=S0, out_dtype=torch.float32)
+    exact = wkv6_chunked_ref(r, k, v, w, u, state=S0, out_dtype=torch.float32,
+                             precision=torch.float64)
+    e, re_ = check_wkv6(got, exact, f"{shape} bf16 w = 1e-8")
+    err_max = max(err_max, e)
+    plain = wkv6_chunked_ref(r, k, v, w, u, state=S0, out_dtype=torch.float32)
+    plain_e = max(float((p - x).abs().max()) for p, x in zip(plain, exact))
+    log("wkv6", f"{shape} bf16, w = 1e-8 (the clamp; a chunk's cumulative log reaches "
+        f"{64 * math.log(1e-8):.0f}): out and state finite; against the chunked form in "
+        f"float64 err {e:.2e}, row err {re_:.2e} (the float32 plain version's err there "
+        f"{plain_e:.2e})")
+    del r, k, v, w, u, S0, got, exact, plain
+    torch.cuda.empty_cache()
     report["wkv6"]["max_abs_err"] = err_max
     return report
 
@@ -1101,14 +1145,17 @@ def wkv6_swapped(fn):
         ssm.wkv6 = saved
 
 
-def wkv6_held(stats: dict):
-    """A stand-in for the kernel that launches it, holds its output against
-    the plain version on the same inputs (``check_wkv6``) and keeps (calls,
-    max abs err, max row err) in ``stats``."""
+def wkv6_held(stats: dict, kernel=None):
+    """A stand-in for the kernel that launches it (``kernel``, default the
+    wrapper), holds its output against the plain version on the same inputs
+    (``check_wkv6``) and keeps (calls, max abs err, max row err) in
+    ``stats``."""
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
 
+    kernel = kernel or wkv6
+
     def call(*args, **kwargs):
-        got = wkv6(*args, **kwargs)
+        got = kernel(*args, **kwargs)
         err, row_err = check_wkv6(got, wkv6_chunked_ref(*args, **kwargs),
                                   "the model's activations")
         n, e, r = stats.get("wkv6", (0, 0.0, 0.0))
@@ -1117,11 +1164,23 @@ def wkv6_held(stats: dict):
     return call
 
 
+def wkv6_counted(hist: dict):
+    """The wrapper, counting its calls by (B, T) in ``hist``."""
+    from repro_torch.kernels.rwkv6 import wkv6
+
+    def call(r, *args, **kwargs):
+        key = tuple(r.shape[:2])
+        hist[key] = hist.get(key, 0) + 1
+        return wkv6(r, *args, **kwargs)
+    return call
+
+
 def phase_rwkv() -> dict:
     """The rwkv6-3b serving and scoring path at full width; returns the
     wkv6 launches it made, counted from zero at its start and held against
     the calls it drives: 32 per decode_step and forward call of S > 1
-    tokens, none at S = 1."""
+    tokens, none at S = 1.  The calls are also counted by (B, T), and the
+    kernel pair is timed at each of those shapes."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
     from repro_torch.launch.serve import BatchedServer
@@ -1132,6 +1191,10 @@ def phase_rwkv() -> dict:
     V, L = cfg.vocab_size, cfg.n_layers
     wkv6.launches = 0
     calls = 0  # decode_step and forward calls of S > 1 tokens
+    by_shape: dict = {}
+    counted = wkv6_counted(by_shape)
+    main_path = contextlib.ExitStack()
+    main_path.enter_context(wkv6_swapped(counted))
     t0 = time.perf_counter()
     model = tf.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1194,7 +1257,7 @@ def phase_rwkv() -> dict:
     held: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(11)
     tokens = torch.randint(0, V, (2, 160), generator=gen, device="cuda")
-    with wkv6_swapped(wkv6_held(held)):
+    with wkv6_swapped(wkv6_held(held, counted)):
         full, _ = tf.forward(model, cfg, {"tokens": tokens})
         dec = teacher_forced(model, cfg, tokens, 128)
     calls += 2
@@ -1231,7 +1294,7 @@ def phase_rwkv() -> dict:
     # Scoring at 2048 tokens.
     held.clear()
     seq = torch.randint(0, V, (1, 2048), generator=gen, device="cuda")
-    with wkv6_swapped(wkv6_held(held)):
+    with wkv6_swapped(wkv6_held(held, counted)):
         got, _ = tf.forward(model, cfg, {"tokens": seq})
     calls += 1
     with wkv6_swapped(plain):
@@ -1264,10 +1327,13 @@ def phase_rwkv() -> dict:
         f"max(2e-2, 2 x that))")
 
     launches = {"wkv6": wkv6.launches}
-    if launches["wkv6"] != L * calls:
-        raise AssertionError(f"rwkv launches {launches}, want {L} x {calls} calls of S > 1")
+    main_path.close()
+    if launches["wkv6"] != L * calls or sum(by_shape.values()) != launches["wkv6"]:
+        raise AssertionError(f"rwkv launches {launches} ({by_shape} by (B, T)), want "
+                             f"{L} x {calls} calls of S > 1")
     log("launches", f"rwkv path: wkv6 {launches['wkv6']} ({L} x {calls} decode_step and "
-        "forward calls of S > 1 tokens)")
+        "forward calls of S > 1 tokens, each launching the kernel pair); by (B, T): "
+        + ", ".join(f"{b} x {t}: {n}" for (b, t), n in sorted(by_shape.items())))
     # The breakdown prefills 512 tokens (one call of S > 1), then decodes.
     serve_breakdown(server)
     if wkv6.launches != launches["wkv6"] + L:
@@ -1276,7 +1342,49 @@ def phase_rwkv() -> dict:
     log("launches", f"rwkv breakdown: {L} wkv6 launches for its 512-token prefill, none for "
         "its 4 decode steps")
     rwkv_cut(model, cfg, tokens)
+    del model, server
+    torch.cuda.empty_cache()
+    wkv6_by_shape(by_shape)
     return launches
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device time per call of ``fn()``: ``calls`` calls captured in one
+    CUDA graph, its replay timed with CUDA events (no host time between
+    launches)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = device_ms(graph.replay, iters=5, warmup=1) / calls
+    del graph
+    return ms
+
+
+def wkv6_by_shape(by_shape: dict) -> None:
+    """The kernel pair at each (B, T) of the main path's calls (bf16 r, k,
+    v at rwkv6-3b's heads, a non-zero state, float32 out): the time per
+    call back to back (CUDA events; at a few tokens it is the wrapper's
+    host time) and on the device (calls replayed from a CUDA graph) beside
+    the bound, and the launches times the device time's gap to the bound."""
+    from repro_torch.kernels.rwkv6 import wkv6
+
+    H, hs = RWKV["H"], RWKV["hs"]
+    total = gap = 0.0
+    for (B, T), n in sorted(by_shape.items()):
+        r, k, v, w, u, S0 = wkv6_inputs(40 + B + T, B, T, H, hs, torch.bfloat16)
+        call = lambda: wkv6(r, k, v, w, u, state=S0, out_dtype=torch.float32)
+        ms, dev_ms = device_ms(call), graph_ms(call)
+        bound = wkv6_bound(B, T, H, hs, 2)["bound_ms"]
+        total, gap = total + n * dev_ms, gap + n * (dev_ms - bound)
+        log("wkv6", f"main path at ({B}, {T}, {H}, {hs}): {n} launches; per call {ms:.4f} ms "
+            f"back to back, {dev_ms:.4f} ms on the device, bound {bound:.4f} ms; "
+            f"{n * dev_ms:.1f} ms on the device, {n * (dev_ms - bound):.1f} ms over the bound")
+        del r, k, v, w, u, S0
+    log("wkv6", f"main path: {sum(by_shape.values())} launches, {total:.1f} ms of device "
+        f"time in the kernel pair, {gap:.1f} ms over the bound")
 
 
 #: depth of the full-width cut of rwkv6-3b held against forward and the
@@ -1419,8 +1527,7 @@ def main() -> int:
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"],
          "bound_ms": report[name]["bound_ms"],
          "bound_by": report[name].get("bound_by", "bytes"),
-         "library_ms": report[name].get("library_ms"), "shape": report[name]["shape"],
-         **{key: report[name][key] for key in ("exps", "chunked_flops") if key in report[name]}}
+         "library_ms": report[name].get("library_ms"), "shape": report[name]["shape"]}
         for name, (src, replaces) in sources.items()]}
     if any(k["launches"] < 1 for k in line["kernels"]):
         raise AssertionError(f"a kernel was not launched on its main path: {launches}")

@@ -112,7 +112,7 @@ def load() -> ctypes.CDLL:
                                             i32, i32, i32, i32, i32, i32, i32, i32,
                                             f32, ptr]
     lib.decode_attention_launch.restype = i32
-    lib.wkv6_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+    lib.wkv6_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                 i32, i32, i32, i32, ptr]
     lib.wkv6_launch.restype = i32
     lib.kernel_error_string.argtypes = [i32]

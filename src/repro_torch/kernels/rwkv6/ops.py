@@ -1,33 +1,15 @@
-"""Public wrapper of the Hopper WKV6 kernel (``csrc/wkv6.cu``)."""
+"""Public wrapper of the Hopper WKV6 kernel pair (``csrc/wkv6.cu``)."""
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rwkv6.ref import DEFAULT_CHUNK, wkv6_chunked_ref
+from repro_torch.kernels.rwkv6.ref import DEFAULT_CHUNK, KERNEL_CHUNK, wkv6_chunked_ref
 
 #: dtype codes of the kernel's C entry point
 WKV6_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HS = MAX_CHUNK = 64
-MIN_COLUMNS = 16  # value columns per block when they are split
-
-
-@functools.cache
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def split_count(BH: int, hs: int, n_sm: int) -> int:
-    """Blocks per (batch, head): its value columns are split in two while
-    the grid still fits one block per SM, down to 16 columns a block."""
-    splits = 1
-    while hs % (2 * splits) == 0 and hs // (2 * splits) >= MIN_COLUMNS \
-            and BH * 2 * splits <= n_sm:
-        splits *= 2
-    return splits
 
 
 def _check(r, k, v, w, u, state, chunk, out_dtype) -> None:
@@ -55,7 +37,7 @@ def _check(r, k, v, w, u, state, chunk, out_dtype) -> None:
         raise ValueError(f"wkv6: head size {hs} and chunk {chunk} must be in [1, 64]")
     if not all(t.is_contiguous() for t in tensors.values()):
         raise ValueError("wkv6: operands must be contiguous")
-    if B * H > 2**31 - 1:
+    if B * H * max(-(-T // KERNEL_CHUNK), 4) > 2**31 - 1:  # blocks of either kernel
         raise ValueError(f"wkv6: shape {tuple(r.shape)} is too large")
 
 
@@ -67,8 +49,12 @@ def wkv6(r, k, v, w, u, *, chunk: int = DEFAULT_CHUNK, state=None, out_dtype=Non
     contract; the model asks for float32).  S_T is float32.  CPU tensors
     take the plain version (``wkv6_chunked_ref``); CUDA tensors (r, k, v
     float32 or bfloat16, w, u and state float32, contiguous, hs and chunk at
-    most 64) launch the kernel on the current stream, or raise.
-    ``wkv6.launches`` counts kernel launches.
+    most 64) launch the kernel pair on the current stream, or raise: first
+    ``wkv6_states``, which writes the state entering each 64-step chunk to a
+    float32 scratch of (B, H, ceil(T / 64), hs, hs), then ``wkv6_outputs``.
+    The kernels tile by 64 steps whatever ``chunk`` is; the value does not
+    depend on it, apart from rounding.  ``wkv6.launches`` counts wrapper
+    calls that launched the pair (one per call; each launches two kernels).
     """
     out_dtype = out_dtype or r.dtype
     if all(t.device.type == "cpu" for t in (r, k, v, w, u)) and (
@@ -79,13 +65,15 @@ def wkv6(r, k, v, w, u, *, chunk: int = DEFAULT_CHUNK, state=None, out_dtype=Non
     B, T, H, hs = r.shape
     out = torch.empty(r.shape, dtype=out_dtype, device=r.device)
     s_out = torch.empty((B, H, hs, hs), dtype=torch.float32, device=r.device)
-    splits = split_count(B * H, hs, _sm_count(r.device.index or 0))
+    states = torch.empty((B, H, -(-T // KERNEL_CHUNK), hs, hs), dtype=torch.float32,
+                         device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.wkv6_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
             None if state is None else state.data_ptr(), out.data_ptr(), s_out.data_ptr(),
-            WKV6_DTYPES[r.dtype], WKV6_DTYPES[out_dtype], B, T, H, hs, chunk, splits, stream,
+            states.data_ptr(), states.shape[2], WKV6_DTYPES[r.dtype], WKV6_DTYPES[out_dtype], B, T, H, hs,
+            stream,
         )
     _build.raise_on_error(lib, "wkv6", code)
     wkv6.launches += 1

@@ -217,8 +217,14 @@ def _wkv6_inputs(seed, B, T, H, hs, dtype=torch.float32, w_range=(0.05, 0.999)):
     (2, 32, 1, 16, 32, torch.float32, False),
     (1, 128, 2, 64, 64, torch.float32, False),
     (2, 256, 3, 64, 64, torch.bfloat16, True),    # the model's chunk, carried state
-    (1, 1000, 40, 64, 64, torch.bfloat16, True),  # ragged, value columns split
+    (1, 1000, 40, 64, 64, torch.bfloat16, True),  # ragged, two value tiles of 32
     (3, 77, 2, 32, 64, torch.float32, True),      # T shorter than one chunk
+    (1, 4096, 4, 64, 64, torch.bfloat16, True),   # 64 chunks through the states scratch
+    (2, 2, 3, 64, 64, torch.bfloat16, True),      # T = 2: one partial chunk
+    (2, 17, 3, 64, 16, torch.float32, True),      # T = 17: a one-row second sub-chunk
+    (2, 200, 2, 16, 64, torch.float32, True),     # hs = 16: one value tile, padded channels
+    (1, 130, 3, 32, 64, torch.bfloat16, True),    # hs = 32: one value tile
+    (1, 90, 2, 20, 64, torch.bfloat16, True),     # hs = 20: rows of 40 bytes, plain loads
 ])
 def test_wkv6_matches_plain(B, T, H, hs, chunk, dtype, with_state):
     _needs_card()
@@ -254,6 +260,21 @@ def test_wkv6_strong_decay_stays_finite():
 
 
 @pytest.mark.cuda
+def test_wkv6_at_the_decay_clamp_stays_finite():
+    """w = 1e-8 (the clamp): a chunk's cumulative log reaches about -1180."""
+    _needs_card()
+    r, k, v, w, u = _wkv6_inputs(7, 2, 300, 4, 64, torch.bfloat16, w_range=(1e-8, 1e-8))
+    state = torch.randn((2, 4, 64, 64), generator=torch.Generator(device="cuda").manual_seed(3),
+                        device="cuda")
+    out, S = wkv6(r, k, v, w, u, state=state, out_dtype=torch.float32)
+    want, want_S = wkv6_chunked_ref(r, k, v, w, u, state=state, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(S).all()
+    torch.testing.assert_close(out, want, rtol=WKV6_TOL, atol=WKV6_TOL)
+    torch.testing.assert_close(S, want_S, rtol=WKV6_TOL, atol=WKV6_TOL)
+
+
+@pytest.mark.cuda
 def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take():
     _needs_card()
     r, k, v, w, u = _wkv6_inputs(6, 1, 16, 2, 16)
@@ -263,3 +284,27 @@ def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take():
         wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u)
     with pytest.raises(ValueError, match="chunk"):
         wkv6(r, k, v, w, u, chunk=128)
+
+
+@pytest.mark.cuda
+def test_wkv6_entry_rejects_a_states_scratch_of_another_chunk_count():
+    """The C entry checks the scratch's chunk count against its own
+    64-step chunks, so a wrapper that sized it otherwise gets an error,
+    not writes past its end."""
+    _needs_card()
+    from repro_torch.kernels import _build
+
+    lib = _build.load()
+    r, k, v, w, u = _wkv6_inputs(8, 1, 130, 2, 16)  # three chunks of 64
+    out, s_out = torch.empty_like(r), torch.empty((1, 2, 16, 16), device="cuda")
+    states = torch.empty((1, 2, 3, 16, 16), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for n_chunks, want in ((2, False), (4, False), (3, True)):
+        code = lib.wkv6_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                               u.data_ptr(), None, out.data_ptr(), s_out.data_ptr(),
+                               states.data_ptr(), n_chunks, 0, 0, 1, 130, 2, 16, stream)
+        assert (code == 0) == want, (n_chunks, code)
+    torch.cuda.synchronize()
+    want, want_S = wkv6_chunked_ref(r, k, v, w, u)
+    torch.testing.assert_close(out, want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(s_out, want_S, rtol=2e-3, atol=2e-3)

@@ -34,7 +34,13 @@ from repro.models import ssm as jssm
 from repro.models import transformer as jtf
 from repro_torch.configs import smoke_config
 from repro_torch.convert import lm_params_from_reference
-from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunk, wkv6_chunked_ref, wkv6_ref
+from repro_torch.kernels.rwkv6 import (
+    wkv6,
+    wkv6_chunk,
+    wkv6_chunked_ref,
+    wkv6_ref,
+    wkv6_two_pass_ref,
+)
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tf
 
@@ -124,6 +130,118 @@ def test_wrapper_carries_state_and_output_dtype():
     scan, S_scan = wkv6_ref(r, k, v, w, u, S0)
     _close(whole, scan, WKV_TOL)
     _close(S_whole, S_scan, WKV_TOL)
+
+
+def _close_to_scale(got, want, tol=2e-5):
+    """float32 on both sides, summed in another order: ``tol`` relative, and
+    ``tol`` of the output's scale (its largest magnitude, 5-20 here) absolute."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                               atol=tol * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("B,T,H,hs,chunk", WKV_CASES + [(2, 9, 2, 16, 16)])  # and T < 16
+def test_two_pass_matches_pallas(B, T, H, hs, chunk):
+    """The kernels' algorithm (chunk states, then outputs by sub-chunk
+    factorisation, in chunks of 64 whatever ``chunk`` is) against the Pallas
+    kernel in interpret mode from a zero state."""
+    jx, th = _wkv_inputs(B * T + hs + 1, B, T, H, hs)
+    want, want_S = jax_wkv6(*jx, chunk=chunk)
+    got, got_S = wkv6_two_pass_ref(*th)
+    assert got.shape == (B, T, H, hs) and got_S.shape == (B, H, hs, hs)
+    _close_to_scale(got, want)
+    _close_to_scale(got_S, want_S)
+
+
+def _reference_chunks(S0, jx, chunk=64):
+    """``repro.models.ssm._rwkv_chunk`` over the sequence from S0, a ragged
+    T padded with w = 1 and r = k = v = 0 as the reference pads it."""
+    r, k, v, w, u = (np.asarray(a) for a in jx)
+    T = r.shape[1]
+    pad = (-T) % chunk
+    widths = ((0, 0), (0, pad), (0, 0), (0, 0))
+    r, k, v = (np.pad(a, widths) for a in (r, k, v))
+    w = np.pad(w, widths, constant_values=1.0)
+    S, outs = jnp.asarray(S0), []
+    for c0 in range(0, T + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        out, S = jssm._rwkv_chunk(S, *(jnp.asarray(a[:, sl]) for a in (r, k, v, w)),
+                                  jnp.asarray(u))
+        outs.append(np.asarray(out))
+    return np.concatenate(outs, axis=1)[:, :T], np.asarray(S)
+
+
+@pytest.mark.parametrize("T,w_range,ref_tol", [
+    (150, (0.05, 0.999), 2e-5),  # a carried state across three chunks, the last ragged
+    (17, (0.05, 0.999), 2e-5),   # one ragged chunk, a second sub-chunk of one row
+    (7, (0.05, 0.999), 2e-5),    # T < 16
+    (130, (1e-6, 1e-6), WKV_TOL),  # strong decay
+    (100, (1e-8, 1e-8), WKV_TOL),  # w at the 1e-8 clamp
+    (70, (1e-12, 1e-9), WKV_TOL),  # w below the clamp
+])
+def test_two_pass_matches_reference_chunks_from_a_state(T, w_range, ref_tol):
+    """From a non-zero state, against the reference's chunk scan and the
+    port's chunked form.  Under strong decay a chunk's cumulative log
+    reaches -880 to -1180, whose float32 ulp (6e-5 to 1.2e-4) the two
+    frameworks' cumsums round differently (by up to 1.2e-4); each decay
+    factor moves with it, so the reference is held there at TestWKV6's
+    2e-3, and the port's chunked form, which shares the cumsum, at 2e-5."""
+    jx, th = _wkv_inputs(T + 11, 2, T, 3, 32, w_range=w_range)
+    S0 = np.random.default_rng(T).normal(size=(2, 3, 32, 32)).astype(np.float32) * 0.5
+    want, want_S = _reference_chunks(S0, jx)
+    got, got_S = wkv6_two_pass_ref(*th, state=torch.from_numpy(S0))
+    assert torch.isfinite(got).all() and torch.isfinite(got_S).all()
+    _close_to_scale(got, want, ref_tol)
+    _close_to_scale(got_S, want_S, ref_tol)
+    same, same_S = wkv6_chunked_ref(*th, state=torch.from_numpy(S0))
+    _close_to_scale(got, same.numpy())
+    _close_to_scale(got_S, same_S.numpy())
+
+
+def test_two_pass_carries_state_and_output_dtype():
+    """Two calls from a carried state equal one call; out_dtype as asked."""
+    _, (r, k, v, w, u) = _wkv_inputs(8, 1, 200, 2, 16)
+    S0 = torch.from_numpy(np.random.default_rng(9).normal(size=(1, 2, 16, 16)).astype(np.float32))
+    whole, S_whole = wkv6_two_pass_ref(r, k, v, w, u, state=S0)
+    a, S_a = wkv6_two_pass_ref(r[:, :90], k[:, :90], v[:, :90], w[:, :90], u, state=S0)
+    b, S_b = wkv6_two_pass_ref(r[:, 90:], k[:, 90:], v[:, 90:], w[:, 90:], u, state=S_a,
+                               out_dtype=torch.bfloat16)
+    assert b.dtype == torch.bfloat16 and S_b.dtype == torch.float32
+    _close_to_scale(a, whole[:, :90])
+    np.testing.assert_allclose(b.float().numpy(), whole[:, 90:].numpy(),
+                               rtol=2**-8, atol=2e-5)  # rounded once
+    _close_to_scale(S_b, S_whole)
+
+
+def _step_scan_float64(S, r, k, v, w, u):
+    """The recurrence step by step in numpy float64: (out, S_T)."""
+    outs = []
+    for t in range(r.shape[1]):
+        kv = np.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+        outs.append(np.einsum("bhk,bhkv->bhv", r[:, t], S + u[None, :, :, None] * kv))
+        S = S * w[:, t, ..., None] + kv
+    return np.stack(outs, axis=1), S
+
+
+@pytest.mark.parametrize("w_range", [(0.05, 0.999), (1e-8, 1e-8)])  # and at the clamp
+def test_chunked_ref_in_float64_matches_a_float64_step_scan(w_range):
+    """``precision=torch.float64``, the yardstick of the card's clamp case:
+    a ragged T from a state, against the step scan in float64, rounded
+    once to float32 (out in out_dtype, S_T float32)."""
+    rng = np.random.default_rng(12)
+    B, T, H, hs = 2, 150, 2, 16
+    r, v = rng.normal(size=(2, B, T, H, hs))
+    k = rng.normal(size=(B, T, H, hs)) * 0.5
+    w = rng.uniform(*w_range, size=(B, T, H, hs))
+    u = rng.normal(size=(H, hs)) * 0.3
+    S0 = rng.normal(size=(B, H, hs, hs)) * 0.5
+    want, want_S = _step_scan_float64(S0, r, k, v, w, u)
+    got, got_S = wkv6_chunked_ref(*(torch.from_numpy(a) for a in (r, k, v, w, u)),
+                                  state=torch.from_numpy(S0), out_dtype=torch.float32,
+                                  precision=torch.float64)
+    assert got.dtype == torch.float32 and got_S.dtype == torch.float32
+    for g, x in ((got, want), (got_S, want_S)):
+        np.testing.assert_allclose(g.numpy(), x, rtol=1e-6, atol=1e-6 * np.abs(x).max())
 
 
 def _pair(**overrides):
