@@ -3,37 +3,53 @@
 
     python3 chip_smoke.py
 
-Phases, one or more printed lines each:
+Phases, one or more printed lines each, in run order:
 
 1. build: compile the hand-written kernels from ``src/repro_torch/csrc``,
    print ptxas's registers and spills, and require HGMMA (wgmma) and
-   UTMALDG (TMA loads) in the SASS of every bfloat16 attention kernel, and
-   TF32 tensor-core MMAs and LDGSTS (cp.async) with no spills in both WKV6
-   kernels;
-2. kernels: hold each kernel against its plain PyTorch version on the card,
-   bit for bit, at the main path's shapes and on edge rows (all-PAD, one
-   key, a run across many tiles, sums above 2**24), with its time, the
-   plain version's time and its memory bound;
-3. engine: both applications at 2**26 tokens through ``build_job`` with the
+   UTMALDG (TMA loads) in the SASS of every bfloat16 attention kernel (the
+   head_dim 64, 128 and 256 instances), TF32 tensor-core MMAs and LDGSTS
+   (cp.async) in both WKV6 kernels, and no spill (LDL/STL) in any of them;
+2. kernels: hold each MapReduce kernel against its plain PyTorch version on
+   the card, bit for bit, at the main path's shapes and on edge rows
+   (all-PAD, one key, a run across many tiles, sums above 2**24), with its
+   time, the plain version's time and its memory bound;
+3. attention: the two attention kernels against their plain versions on
+   the card at the qwen3-0.6b serving shapes and gemma-7b's head_dim 256
+   shapes (decode over a ragged kv_len split into 64-key tiles, the
+   long-prompt prefill, flash causal and non-causal with Sk > Sq), bfloat16
+   and float32, and on edge cases (garbage past kv_len, kv_len past the
+   cache, a ragged sequence, non-causal with Sk > Sq), elementwise and row
+   by row relative to each row's scale, with proof at each bfloat16 shape
+   that the check rejects an all-zero output and a dropped key split or
+   lost key tile; with their time, the plain version's,
+   ``scaled_dot_product_attention``'s and the bound;
+4. engine: both applications at 2**26 tokens through ``build_job`` with the
    ``"cuda"`` and ``"torch"`` reduce backends at a few (M, R, W): outputs
    bit-identical, results equal to a numpy count of the corpus, and
    WordCount's combiner run equal to the run without it;
-4. loop: the paper's profile -> fit -> predict loop per application, 20
+5. loop: the paper's profile -> fit -> predict loop per application, 20
    training and 8 held-out (M, R) settings, reduce backend ``"cuda"``;
-5. launches: the kernel launch counts of phases 3-4 (the MapReduce main
-   path), which must be exactly one ``segment_reduce`` per reduce wave and
-   one ``local_reduce`` per combiner job;
-6. breakdown: where one full-size job's time goes, phase by phase and (under
-   ``torch.profiler``) kernel by kernel, with the device's busy share;
-7. attention: the two attention kernels against their plain versions on
-   the card at the qwen3-0.6b serving shapes (bfloat16 and float32) and on
-   edge cases (garbage past kv_len, kv_len past the cache, a ragged
-   sequence, non-causal with Sk > Sq), elementwise and row by row relative
-   to each row's scale, with proof at each serving shape that the check
-   rejects an all-zero output and a dropped key split or lost key tile;
-   with their time, the plain version's,
-   ``scaled_dot_product_attention``'s and the bound;
-8. serve: the LM serving path (the second main path) at the full width of
+   then the launch counts of phases 4-5 (the MapReduce main path), which
+   must be exactly one ``segment_reduce`` per reduce wave and one
+   ``local_reduce`` per combiner job;
+6. breakdown: where one full-size job's time goes, phase by phase from the
+   traced mode's JobTrace and (under ``torch.profiler``) kernel by kernel,
+   with the device's busy share;
+7. traced: both applications at 2**26 tokens at the engine's (M, R, W) and
+   WordCount with its combiner, through ``build_job(...,
+   recorder=PhaseRecorder())``: outputs bit-equal to the fused mode's,
+   ``check_conservation()`` empty, ``map.pairs_emitted`` equal to the
+   numpy count of valid pairs, ``reduce.segments_out`` equal to the
+   distinct keys of the numpy count (when nothing dropped),
+   ``combine.net_bytes`` 0; per-phase walls and counters printed;
+8. pipelined: the same jobs in the pipelined mode at depths 1, 2 and 3:
+   outputs bit-equal to fused, exactly ceil(R / min(W D, R))
+   ``segment_reduce`` launches and one ``local_reduce`` (with the combiner)
+   a job, the traced form at depth 2 with its ``pipeline`` phase
+   conserving; each depth's job wall beside fused's, as information;
+   phases 7 and 8 each count their launches from zero;
+9. serve: the LM serving path (the second main path) at the full width of
    qwen3-0.6b: latency profile, fit and SLO batch pick, 32 requests, the
    prediction at unprofiled batches 3 and 6 against a measurement, a batch
    of 2048-token prompts, decode-vs-forward logits, the 28-layer logits of
@@ -42,7 +58,13 @@ Phases, one or more printed lines each:
    scoring logits, loss and time, attention launch counts equal to 28 per
    decode_step and forward call the phase drives, and the device time by
    kernel of the long prompts' prefill and of one decode step;
-9. wkv6: the WKV6 kernel pair against its plain version (the chunked form)
+10. gemma: the same serving path at the full width of gemma-7b (28 layers,
+   16 heads of 256, GeGLU, vocabulary 256000, 17 GB of bf16 weights): 8
+   requests, 8 prompts of 2048 tokens with 32 new tokens into a 4096-slot
+   cache, each layer's attention call held against its plain version, the
+   28-layer logits within their measured floor, attention launches 28 per
+   call;
+11. wkv6: the WKV6 kernel pair against its plain version (the chunked form)
    on the card, float32 at the reference test's shapes (ragged T, w = 1e-6),
    bf16 r, k, v with a non-zero initial state at the rwkv6-3b long-prompt
    batch, one 2048-token and one 32768-token sequence, elementwise and row
@@ -51,8 +73,8 @@ Phases, one or more printed lines each:
    that the check rejects an ignored initial state, a dropped bonus
    diagonal and a lost chunk state update; its time, the plain version's
    and the bound with both its terms;
-10. rwkv: the rwkv6-3b serving and scoring path at full width (32 layers):
-   the same serving steps as phase 8, decode-vs-forward logits across
+12. rwkv: the rwkv6-3b serving and scoring path at full width (32 layers):
+   the same serving steps as phase 9, decode-vs-forward logits across
    chunks, each layer's wkv6 call held against its plain version, the
    32-layer logits against the path with the plain version within a
    measured floor, 2048-token scoring, wkv6 launches equal to 32 per
@@ -180,12 +202,12 @@ def phase_build() -> None:
 #: kernels whose SASS must hold Hopper's instructions: name -> (number of
 #: instantiations, {what: substrings one SASS line must all hold}, whether
 #: it must hold no local-memory instruction (LDL/STL), so no spill).  The
-#: bfloat16 attention kernels run wgmma on TMA tiles; each WKV6 kernel runs
-#: TF32 tensor-core MMAs on tiles loaded by cp.async (LDGSTS), and spills
-#: nothing.
+#: bfloat16 attention kernels (head_dim 64, 128 and 256 instances) run
+#: wgmma on TMA tiles; each WKV6 kernel runs TF32 tensor-core MMAs on tiles
+#: loaded by cp.async (LDGSTS); none spills.
 HOPPER_KERNELS = {
-    "flash_attention_bf16": (2, {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)}, False),
-    "decode_attention_bf16": (2, {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)}, False),
+    "flash_attention_bf16": (3, {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)}, True),
+    "decode_attention_bf16": (3, {"HGMMA": ("HGMMA",), "UTMALDG": ("UTMALDG",)}, True),
     "wkv6_states": (2, {"TF32 MMA": ("MMA", "TF32"), "LDGSTS": ("LDGSTS",)}, True),
     "wkv6_outputs": (3, {"TF32 MMA": ("MMA", "TF32"), "LDGSTS": ("LDGSTS",)}, True),
 }
@@ -282,10 +304,10 @@ def phase_kernels() -> dict:
     return report
 
 
-def exim_expected(corpus: np.ndarray, M: int) -> dict:
-    """Per-transaction byte sums as the engine parses them: each of the M
-    splits holds whole records from its own start; a record cut by the
-    corpus end is dropped."""
+def exim_expected(corpus: np.ndarray, M: int) -> tuple[dict, int]:
+    """Per-transaction byte sums as the engine parses them, and the number
+    of records (the pairs the map emits): each of the M splits holds whole
+    records from its own start; a record cut by the corpus end is dropped."""
     n = len(corpus)
     S = math.ceil(n / M)
     padded = np.zeros(M * S, dtype=np.int64)
@@ -296,7 +318,7 @@ def exim_expected(corpus: np.ndarray, M: int) -> dict:
     ok = live.reshape(M, S)[:, : n_rec * 3].reshape(M, n_rec, 3).all(axis=2)
     keys, sizes = rec[..., 0][ok], rec[..., 2][ok]
     sums = np.bincount(keys, weights=sizes).astype(np.int64)
-    return {int(k): int(sums[k]) for k in np.flatnonzero(np.bincount(keys))}
+    return {int(k): int(sums[k]) for k in np.flatnonzero(np.bincount(keys))}, len(keys)
 
 
 def live_pairs(ok, ov):
@@ -410,41 +432,28 @@ def phase_loop(apps: dict) -> int:
 
 def phase_breakdown(apps: dict) -> None:
     """Where a full-size job's time goes: each phase fenced and
-    wall-clocked, per reduce backend; then one "cuda" WordCount job under
-    torch.profiler, with device time by kernel and the device's busy share
-    of the job's wall time."""
+    wall-clocked by the traced mode, per reduce backend; then one "cuda"
+    WordCount job under torch.profiler, with device time by kernel and the
+    device's busy share of the job's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.mapreduce import ExecutionPlan, JobConfig
+    from repro_torch.mapreduce import JobConfig, build_job
+    from repro_torch.telemetry import PhaseRecorder
 
     M, R, W = ENGINE_CONFIGS[0]
     for name, (app, corpus) in apps.items():
         for backend in ("cuda", "torch"):
-            plan = ExecutionPlan(app, JobConfig(M, R, W, reduce_backend=backend),
-                                 len(corpus), device="cuda")
-            fns = plan.phase_fns()
-            walls = {}
+            recorder = PhaseRecorder()
+            job = build_job(app, JobConfig(M, R, W, reduce_backend=backend), len(corpus),
+                            recorder=recorder, device="cuda")
             for _ in range(2):  # the first pass warms the allocator
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                bufs = fns["map"](corpus)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                pk, pv, _ = fns["shuffle"](*bufs)
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-                fns["reduce"](pk, pv)
-                torch.cuda.synchronize()
-                t3 = time.perf_counter()
-                walls = {"map": t1 - t0, "shuffle": t2 - t1, "reduce": t3 - t2}
-                del bufs, pk, pv
+                job(corpus)
+            walls = recorder.last.phase_times()
             total = sum(walls.values())
             log("breakdown", f"{name} M={M} R={R} W={W} {backend}: " + ", ".join(
                 f"{k} {v * 1e3:.2f} ms ({v / total:.0%})" for k, v in walls.items()))
     app, corpus = apps["wordcount"]
-    from repro_torch.mapreduce import build_job
-
     job = build_job(app, JobConfig(M, R, W, reduce_backend="cuda"), len(corpus),
                     device="cuda")
     job(corpus)
@@ -466,6 +475,135 @@ def phase_breakdown(apps: dict) -> None:
         log("breakdown", f"  {us / 1e3:8.3f} ms  {kname[:100]}")
 
 
+def mapreduce_jobs(apps: dict):
+    """(name, app, corpus, JobConfig) of the traced and pipelined phases:
+    both applications at ENGINE_CONFIGS, reduce backend "cuda", and
+    WordCount's first config with its combiner."""
+    from repro_torch.mapreduce import JobConfig
+
+    for name, (app, corpus) in apps.items():
+        for M, R, W in ENGINE_CONFIGS:
+            yield name, app, corpus, JobConfig(M, R, W, reduce_backend="cuda")
+    app, corpus = apps["wordcount"]
+    yield "wordcount", app, corpus, JobConfig(*ENGINE_CONFIGS[0], reduce_backend="cuda",
+                                              combiner=True)
+
+
+def phase_traced(apps: dict, expect: dict, pairs: dict) -> dict:
+    """The traced mode at full size: every job of ``mapreduce_jobs`` through
+    ``build_job(..., recorder=PhaseRecorder())``, outputs bit-equal to the
+    fused mode's, counters held against numpy counts of the corpus, the
+    conservation laws checked.  Returns the launches its jobs must have
+    made: one segment_reduce a reduce wave, one local_reduce a combiner job."""
+    from repro_torch.mapreduce import build_job
+    from repro_torch.telemetry import PhaseRecorder
+
+    seg = loc = 0
+    for name, app, corpus, cfg in mapreduce_jobs(apps):
+        M, R, W = cfg.num_mappers, cfg.num_reducers, cfg.num_workers
+        fused = build_job(app, cfg, len(corpus), device="cuda")(corpus)
+        recorder = PhaseRecorder()
+        job = build_job(app, cfg, len(corpus), recorder=recorder, device="cuda")
+        got = job(corpus)
+        seg += 2 * cfg.reduce_waves  # the fused job and the traced one
+        loc += 2 * int(cfg.combiner)
+        if not all(torch.equal(a, b) for a, b in zip(got, fused)):
+            raise AssertionError(f"traced {name} {(M, R, W)}: outputs differ from fused")
+        trace = recorder.last
+        bad = trace.check_conservation()
+        dropped = int(got[2])
+        distinct = len(expect[(name, M)])
+        emitted = trace.counter("map", "pairs_emitted")
+        segments = trace.counter("reduce", "segments_out")
+        if bad or emitted != pairs[(name, M)]:
+            raise AssertionError(f"traced {name} {(M, R, W)}: {bad}, pairs_emitted {emitted} "
+                                 f"against numpy's {pairs[(name, M)]}")
+        # A key's pairs all go to one partition and sum in one run, so the
+        # segments are the distinct keys unless a partition overflowed.
+        if (dropped == 0 and segments != distinct) or segments > distinct:
+            raise AssertionError(f"traced {name} {(M, R, W)}: segments_out {segments}, "
+                                 f"{distinct} distinct keys in numpy's count, {dropped} dropped")
+        if cfg.combiner and trace.counter("combine", "net_bytes") != 0:
+            raise AssertionError("combine phase moved fabric bytes")
+        job(corpus)  # a second, warm run for the walls
+        trace = recorder.last
+        seg += cfg.reduce_waves
+        loc += int(cfg.combiner)
+        log("traced", f"{name} M={M} R={R} W={W}{' combiner' if cfg.combiner else ''}: "
+            f"== fused bit for bit, conserves, pairs_emitted {int(emitted)} == numpy, "
+            f"segments_out {int(segments)} ({distinct} distinct keys, {dropped} dropped); "
+            f"total {trace.total_s * 1e3:.2f} ms: " + ", ".join(
+                f"{p.phase} {p.wall_s * 1e3:.2f} ms" for p in trace.phases))
+        log("traced", "  counters: " + "; ".join(
+            f"{p.phase} " + " ".join(f"{k}={v:g}" for k, v in sorted(p.counters.items())
+                                     if k not in ("cpu_workers",))
+            for p in trace.phases))
+    return {"segment_reduce": seg, "local_reduce": loc}
+
+
+def phase_pipelined(apps: dict) -> dict:
+    """The pipelined mode at full size: every job of ``mapreduce_jobs`` at
+    depths 1, 2 and 3, outputs bit-equal to fused, one segment_reduce a
+    wave group (ceil(R / min(W D, R)) a job) and one local_reduce a
+    combiner job; the traced form at depth 2 records the pipeline phase
+    and conserves.  Job walls beside fused's are information only.
+    Returns the launches the phase's jobs must have made."""
+    from repro_torch.kernels.local_reduce import local_reduce
+    from repro_torch.kernels.segment_reduce import segment_reduce
+    from repro_torch.mapreduce import ExecutionPlan
+    from repro_torch.telemetry import PhaseRecorder
+
+    want = {"segment_reduce": 0, "local_reduce": 0}
+
+    def timed(job, corpus):
+        job(corpus)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = job(corpus)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for name, app, corpus, cfg in mapreduce_jobs(apps):
+        M, R, W = cfg.num_mappers, cfg.num_reducers, cfg.num_workers
+        plan = ExecutionPlan(app, cfg, len(corpus), device="cuda")
+        fused, t_fused = timed(plan.fused(), corpus)
+        want["segment_reduce"] += 2 * cfg.reduce_waves
+        want["local_reduce"] += 2 * int(cfg.combiner)
+        walls = []
+        for depth in (1, 2, 3):
+            job = plan.pipelined(depth=depth)
+            job(corpus)
+            torch.cuda.synchronize()
+            before = segment_reduce.launches, local_reduce.launches
+            got, wall = timed(job, corpus)
+            groups = math.ceil(R / min(W * depth, R))
+            made = (segment_reduce.launches - before[0], local_reduce.launches - before[1])
+            want["segment_reduce"] += 3 * groups
+            want["local_reduce"] += 3 * int(cfg.combiner)
+            if made != (2 * groups, 2 * int(cfg.combiner)):
+                raise AssertionError(f"pipelined {name} {(M, R, W)} depth {depth}: launches "
+                                     f"{made} for two jobs, want {groups} and "
+                                     f"{int(cfg.combiner)} a job")
+            if not all(torch.equal(a, b) for a, b in zip(got, fused)):
+                raise AssertionError(f"pipelined {name} {(M, R, W)} depth {depth}: outputs "
+                                     "differ from fused")
+            walls.append(f"D={depth} {wall * 1e3:.2f} ms ({groups} reduce launches)")
+        recorder = PhaseRecorder()
+        got = plan.traced(recorder, depth=2)(corpus)
+        want["segment_reduce"] += math.ceil(R / min(2 * W, R))
+        want["local_reduce"] += int(cfg.combiner)
+        trace = recorder.last
+        if not all(torch.equal(a, b) for a, b in zip(got, fused)) or \
+                trace.phase_names()[-1] != "pipeline" or trace.check_conservation():
+            raise AssertionError(f"traced D=2 {name} {(M, R, W)}: {trace.phase_names()}, "
+                                 f"{trace.check_conservation()}")
+        log("pipelined", f"{name} M={M} R={R} W={W}{' combiner' if cfg.combiner else ''}: "
+            f"depths 1-3 == fused bit for bit; job wall fused {t_fused * 1e3:.2f} ms, "
+            + ", ".join(walls) + f"; traced D=2 conserves, pipeline phase "
+            f"{trace.phase('pipeline').wall_s * 1e3:.3f} ms of {trace.total_s * 1e3:.2f} ms")
+    return want
+
+
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 #: per (query, head) row: the norm of the difference over the norm of the
 #: plain version's row.  A row that averages thousands of keys is small
@@ -473,6 +611,7 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 #: an all-zero output; this holds each row to its own scale.
 ATTN_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 QWEN = dict(Hq=16, n_kv=8, hd=128)  # qwen3-0.6b attention geometry
+GEMMA = dict(Hq=16, n_kv=16, hd=256)  # gemma-7b's: MHA, head_dim 256
 
 
 def attention_bound(B, Sq, Hq, n_kv, hd, Sk, visible, itemsize=2):
@@ -528,28 +667,31 @@ def check_rejects(name, case, want, wrongs: dict) -> str:
 def wrong_outputs(q, k, v, ref, want, n_visible: int) -> dict:
     """Outputs of plausible kernel faults, from the plain version: all
     zeros; at decode (one query) one key split dropped from the combine;
-    else the values of the last 128-key tile lost, whole or its first 64 keys."""
+    else the values of the last key tile (128 keys, 64 at head_dim 256)
+    lost, whole or its first half."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_ref,
         split_plan,
         target_blocks,
+        tile_keys,
     )
 
     wrongs = {"all-zero output": torch.zeros_like(want)}
-    B, Sq, Hq, _ = q.shape
+    B, Sq, Hq, hd = q.shape
     if Sq == 1:
         n, keys = split_plan(B, Sq, Hq, k.shape[2], k.shape[1], n_visible,
-                             target_blocks(q.device.index))
+                             target_blocks(q.device.index), hd)
         a = n // 2 * keys
         keep = torch.cat([torch.arange(a), torch.arange(a + keys, n_visible)]).to(k.device)
         wrongs[f"split {n // 2} of {n} dropped"] = decode_attention_ref(
-            q, k[:, keep], v[:, keep], n_visible - keys)
+            q, k[:, keep], v[:, keep], len(keep))
     else:
+        tile = tile_keys(hd)
         lost = v.clone()
-        lost[:, n_visible - 128:n_visible - 64] = 0
-        wrongs["64 keys of values lost"] = ref(q, k, lost)
-        lost[:, n_visible - 64:n_visible] = 0
-        wrongs["one 128-key tile of values lost"] = ref(q, k, lost)
+        lost[:, n_visible - tile:n_visible - tile // 2] = 0
+        wrongs[f"{tile // 2} keys of values lost"] = ref(q, k, lost)
+        lost[:, n_visible - tile // 2:n_visible] = 0
+        wrongs[f"one {tile}-key tile of values lost"] = ref(q, k, lost)
     return wrongs
 
 
@@ -619,6 +761,42 @@ def phase_attention() -> dict:
              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
              enable_gqa=True),
          attention_bound(1, S_fl, Hq, n_kv, hd, S_fl, S_fl * (S_fl + 1) // 2)),
+    ]
+    # gemma-7b's heads (16 of 256, MHA): its long-prompt prefill and a
+    # causal and a non-causal (Sk > Sq) flash call; decode at batch 1 over
+    # a ragged kv_len, where the keys split into 64-key tiles.
+    gH, gkv, ghd = GEMMA["Hq"], GEMMA["n_kv"], GEMMA["hd"]
+    kv_g, Sq_g, Sk_g = 30001, 2048, 4096
+    cases += [
+        ("decode_attention", f"gemma-7b decode B=1 Sq=1 kv_len={kv_g} S_max={S_dec}",
+         ((1, 1, gH, ghd), (1, S_dec, gkv, ghd)), kv_g,
+         lambda q, k, v: decode_attention(q, k, v, kv_g),
+         lambda q, k, v: decode_attention_ref(q, k, v, kv_g),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k[:, :kv_g].transpose(1, 2), v[:, :kv_g].transpose(1, 2)),
+         attention_bound(1, 1, gH, gkv, ghd, kv_g, kv_g)),
+        ("decode_attention", f"gemma-7b prefill B=8 Sq=kv_len={S_pre} S_max={P_max}",
+         ((8, S_pre, gH, ghd), (8, P_max, gkv, ghd)), S_pre,
+         lambda q, k, v: decode_attention(q, k, v, S_pre),
+         lambda q, k, v: decode_attention_ref(q, k, v, S_pre),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k[:, :S_pre].transpose(1, 2), v[:, :S_pre].transpose(1, 2),
+             is_causal=True),
+         attention_bound(8, S_pre, gH, gkv, ghd, S_pre, S_pre * (S_pre + 1) // 2)),
+        ("flash_attention", f"gemma-7b causal B=1 S={S_fl}",
+         ((1, S_fl, gH, ghd), (1, S_fl, gkv, ghd)), S_fl,
+         lambda q, k, v: flash_attention(q, k, v, causal=True),
+         lambda q, k, v: flash_attention_ref(q, k, v, causal=True),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True),
+         attention_bound(1, S_fl, gH, gkv, ghd, S_fl, S_fl * (S_fl + 1) // 2)),
+        ("flash_attention", f"gemma-7b non-causal B=1 Sq={Sq_g} Sk={Sk_g}",
+         ((1, Sq_g, gH, ghd), (1, Sk_g, gkv, ghd)), Sk_g,
+         lambda q, k, v: flash_attention(q, k, v, causal=False),
+         lambda q, k, v: flash_attention_ref(q, k, v, causal=False),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+         attention_bound(1, Sq_g, gH, gkv, ghd, Sk_g, Sq_g * Sk_g)),
     ]
     report = {}
     for i, (name, case, (qs, ks), n_visible, kern, ref, lib,
@@ -726,10 +904,14 @@ def logits_err(a, b, V: int) -> tuple[float, float]:
     return float((a - b).abs().max()), float((a - b).norm() / b.norm())
 
 
-def phase_serve() -> dict:
-    """The LM serving path at full width; returns the attention launches it
-    made, counted from zero at its start and held against the calls it
-    drives: 28 per decode_step call and per forward call of the kernel path."""
+def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32,
+                long_new: int = 128) -> dict:
+    """The LM serving path of ``arch`` at full width; returns the attention
+    launches it made, counted from zero at its start and held against the
+    calls it drives: one per layer for each decode_step call and each
+    forward call of the kernel path.  ``requests`` 8-token prompts are
+    served at the SLO batch, then 8 2048-token prompts with ``long_new``
+    new tokens into a 4096-slot cache."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -737,7 +919,7 @@ def phase_serve() -> dict:
     from repro_torch.models import transformer as tf
     from repro_torch.train import StepConfig, build_eval_step
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     V = cfg.vocab_size
     decode_attention.launches = 0
     flash_attention.launches = 0
@@ -746,7 +928,7 @@ def phase_serve() -> dict:
     model = tf.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    log("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(tag, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, vocab "
         f"{cfg.vocab_size}; {n_bytes / 1e9:.3f} GB of bf16 weights drawn on the card "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -756,13 +938,13 @@ def phase_serve() -> dict:
     latency = server.profile_latency_model()
     steps += len(server.profiled) * TOKEN_LATENCY_STEPS
     for b, t in server.profiled.items():
-        log("serve", f"profile batch {b}: {t * 1e3:.3f} ms/token")
+        log(tag, f"profile batch {b}: {t * 1e3:.3f} ms/token")
     batch = server.pick_batch_for_slo(latency, 50e-3)
-    log("serve", f"fit: train MAPE {latency.train_mape:.2f}%, R^2 {latency.r2:.4f}; "
+    log(tag, f"fit: train MAPE {latency.train_mape:.2f}%, R^2 {latency.r2:.4f}; "
         f"SLO 50 ms/token -> predicted max batch {batch}")
     done, g = 0, torch.Generator(device="cuda")
-    while done < 32:
-        b = min(batch, 32 - done)
+    while done < requests:
+        b = min(batch, requests - done)
         prompts = torch.randint(0, cfg.vocab_size, (b, 8), generator=g.manual_seed(done),
                                 device="cuda")
         toks, per_tok = server.serve(prompts, 16)
@@ -770,16 +952,16 @@ def phase_serve() -> dict:
         if toks.shape != (b, 16) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
             raise AssertionError(f"served tokens out of range: {tuple(toks.shape)}")
         done += b
-        log("serve", f"served {b} requests of 8-token prompts, 16 new tokens: "
+        log(tag, f"served {b} requests of 8-token prompts, 16 new tokens: "
             f"{per_tok * 1e3:.3f} ms/token, prefill {server.last_prefill_s * 1e3:.2f} ms "
-            f"({done}/32 done)")
+            f"({done}/{requests} done)")
 
     # The model at batches it was not profiled at.
     pred = latency.predict(np.asarray([[3.0], [6.0]]), device="cuda").cpu().numpy()
     for b, p in zip((3, 6), pred):
         m = server.token_latency(b)
         steps += TOKEN_LATENCY_STEPS
-        log("serve", f"batch {b}: predicted {p * 1e3:.3f} ms/token, measured "
+        log(tag, f"batch {b}: predicted {p * 1e3:.3f} ms/token, measured "
             f"{m * 1e3:.3f} ms/token ({(p - m) / m:+.1%})")
 
     # One batch of 8 long prompts.
@@ -788,22 +970,22 @@ def phase_serve() -> dict:
                             device="cuda")
     long_server.serve(prompts[:, :64], 4)  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    toks, per_tok = long_server.serve(prompts, 128)
-    steps += 4 + 128
-    log("serve", f"8 requests of 2048-token prompts, max_len 4096 (KV cache "
+    toks, per_tok = long_server.serve(prompts, long_new)
+    steps += 4 + long_new
+    log(tag, f"8 requests of 2048-token prompts, max_len 4096 (KV cache "
         f"{8 * 4096 * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 / 1e9:.2f}"
-        f" GB), 128 new tokens: prefill {long_server.last_prefill_s * 1e3:.1f} ms "
+        f" GB), {long_new} new tokens: prefill {long_server.last_prefill_s * 1e3:.1f} ms "
         f"({8 * 2048 / long_server.last_prefill_s:.0f} tokens/s), decode "
         f"{per_tok * 1e3:.3f} ms/token; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if toks.shape != (8, 128):
+    if toks.shape != (8, long_new):
         raise AssertionError(f"long-prompt batch returned {tuple(toks.shape)}")
     prefills = []
     for _ in range(3):  # the prefill alone: serve one token
         long_server.serve(prompts, 1)
         prefills.append(long_server.last_prefill_s)
     steps += 3
-    log("serve", f"prefill of the same 8 x 2048-token prompts, three more times: "
+    log(tag, f"prefill of the same 8 x 2048-token prompts, three more times: "
         f"{', '.join(f'{t * 1e3:.1f}' for t in prefills)} ms")
     profiled_breakdown(f"{cfg.name} prefill of the 8 x 2048-token prompts",
                        lambda: long_server.serve(prompts, 1))
@@ -839,9 +1021,18 @@ def phase_serve() -> dict:
         floor, _ = logits_err(tf.forward(model, cfg, {"tokens": tokens}, use_flash=True)[0],
                               full_ref, V)
     plain, _ = tf.forward(model, cfg, {"tokens": tokens}, use_flash=False)
+    # Decode vs forward: 2e-2 (tests/test_models_smoke.py), or twice what
+    # the same model gives with the kernels' plain versions where the rest
+    # of the bf16 model already differs more (gemma-7b: cuBLAS takes other
+    # GEMMs at 2 rows than at 48, and 28 layers amplify the roundings); the
+    # float32 upcast below is held to 2e-2 without that floor.
     err_dec, _ = logits_err(dec, full[:, 15:], V)
-    if not torch.allclose(dec[..., :V].float(), full[:, 15:, :V].float(), rtol=2e-2, atol=2e-2):
-        raise AssertionError(f"decode_step differs from forward: max abs err {err_dec}")
+    floor_dec, _ = logits_err(dec_ref, full_ref[:, 15:], V)
+    tol_dec = max(2e-2, 2 * floor_dec)
+    if not torch.allclose(dec[..., :V].float(), full[:, 15:, :V].float(), rtol=2e-2,
+                          atol=tol_dec):
+        raise AssertionError(f"decode_step differs from forward: max abs err {err_dec}, "
+                             f"{floor_dec} with the plain versions")
     err_full, rel_full = logits_err(full, full_ref, V)
     err_step, _ = logits_err(dec, dec_ref, V)
     limit = max(5e-2, 2 * floor)
@@ -853,22 +1044,24 @@ def phase_serve() -> dict:
     if not rel_plain <= 5e-2:
         raise AssertionError(f"kernel-path logits differ from the plain path: "
                              f"relative norm {rel_plain}")
-    log("serve", f"prefill 16 + 8 decode steps (f32 cache) == forward at each position: "
-        f"max abs err {err_dec:.3e} (tolerance 2e-2), logits scale "
-        f"{float(full[..., :V].float().abs().max()):.2f}")
-    log("serve", "each attention call of that run vs its plain version on the same inputs: "
+    log(tag, f"prefill 16 + 8 decode steps (f32 cache) == forward at each position: "
+        f"max abs err {err_dec:.3e} (tolerance {tol_dec:.3g}; the plain versions' path "
+        f"{floor_dec:.3e}), logits scale {float(full[..., :V].float().abs().max()):.2f}")
+    log(tag, "each attention call of that run vs its plain version on the same inputs: "
         + "; ".join(f"{name} {n} calls, max abs err {e:.3e}, row err {r:.3e}"
                     for name, (n, e, r) in sorted(held.items()))
         + " (tolerance 5e-2, rows 1e-2)")
-    log("serve", f"{cfg.n_layers}-layer logits, kernels vs their plain versions on the "
+    log(tag, f"{cfg.n_layers}-layer logits, kernels vs their plain versions on the "
         f"same path: forward max abs err {err_full:.3e} (relative norm {rel_full:.3e}), "
         f"prefill + decode steps {err_step:.3e}; plain versions vs themselves with the "
         f"softmax scale moved by 2^-20: {floor:.3e} (tolerance max(5e-2, 2 x that))")
-    log("serve", f"{cfg.n_layers}-layer forward logits vs the plain path (_sdpa): kernels "
+    log(tag, f"{cfg.n_layers}-layer forward logits vs the plain path (_sdpa): kernels "
         f"max abs err {err_plain:.3e}, relative norm {rel_plain:.3e} (tolerance 5e-2); "
         f"the kernels' plain versions max abs err {err_ref_plain:.3e}, relative norm "
         f"{rel_ref_plain:.3e}")
     del full, full_ref, dec, dec_ref, plain
+    float32_path(model, cfg, tokens, tag, plain_versions)
+    forwards, steps = forwards + 1, steps + 9
 
     # Scoring at 2048 tokens: every kernel call held against its plain
     # version, the logits against the plain versions' path (with its floor),
@@ -889,7 +1082,7 @@ def phase_serve() -> dict:
     if not (err_long <= max(5e-2, 2 * floor_long) and rel_long <= 5e-2):
         raise AssertionError(f"2048-token logits differ from the kernels' plain versions: "
                              f"{err_long}, floor {floor_long}")
-    log("serve", f"2048-token scoring: {n} flash_attention calls vs their plain versions "
+    log(tag, f"2048-token scoring: {n} flash_attention calls vs their plain versions "
         f"max abs err {e:.3e}, row err {r:.3e}; logits vs the plain versions' path max abs "
         f"err {err_long:.3e} (relative norm {rel_long:.3e}), floor {floor_long:.3e}")
     loss = float(build_eval_step(cfg, StepConfig(use_flash=True, logits_chunk=512))(
@@ -898,7 +1091,7 @@ def phase_serve() -> dict:
     ref = float(build_eval_step(cfg, StepConfig(logits_chunk=512))(model, {"tokens": seq}))
     if not (math.isfinite(loss) and abs(loss - ref) <= 2e-2):
         raise AssertionError(f"scoring loss {loss} vs plain {ref}")
-    log("serve", f"2048-token scoring loss {loss:.5f}, plain path {ref:.5f} "
+    log(tag, f"2048-token scoring loss {loss:.5f}, plain path {ref:.5f} "
         f"(|diff| {abs(loss - ref):.2e}, tolerance 2e-2)")
     score = build_eval_step(cfg, StepConfig(use_flash=True, logits_chunk=512))
     walls = []
@@ -909,20 +1102,62 @@ def phase_serve() -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     forwards += 4
-    log("serve", f"2048-token scoring time (eval step, kernel path, fenced): "
+    log(tag, f"2048-token scoring time (eval step, kernel path, fenced): "
         f"{', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} ms")
 
     launches = {"decode_attention": decode_attention.launches,
                 "flash_attention": flash_attention.launches}
     want = {"decode_attention": cfg.n_layers * steps, "flash_attention": cfg.n_layers * forwards}
     if launches != want:
-        raise AssertionError(f"serve launches {launches}, want {want} ({cfg.n_layers} per "
+        raise AssertionError(f"{tag} launches {launches}, want {want} ({cfg.n_layers} per "
                              f"call: {steps} decode_step, {forwards} forward calls)")
-    log("launches", f"serve path: decode_attention {launches['decode_attention']} "
+    log("launches", f"{tag} path ({cfg.name}): decode_attention "
+        f"{launches['decode_attention']} "
         f"({cfg.n_layers} x {steps} decode_step calls), flash_attention "
         f"{launches['flash_attention']} ({cfg.n_layers} x {forwards} forward calls)")
     serve_breakdown(server)
     return launches
+
+
+def float32_path(model, cfg, tokens, tag: str, plain_versions) -> None:
+    """The full-depth model with the same weights upcast to float32, where
+    no bf16 rounding is amplified: a forward and a prefill of 16 + 8
+    decode steps on the kernel path (each attention call held against its
+    plain version at the float32 tolerance), decode vs forward to 2e-2
+    (tests/test_models_smoke.py) and the kernel path against the plain
+    versions' path to 5e-2.  Makes 9 decode_step and 1 forward call of
+    the kernel path."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+
+    V = cfg.vocab_size
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    model32 = tf.Transformer(cfg32, device=tokens.device)
+    model32.load_state_dict(model.state_dict())
+    held: dict = {}
+    with attention_swapped(*held_against_plain(held)):
+        full, _ = tf.forward(model32, cfg32, {"tokens": tokens}, use_flash=True)
+        dec = teacher_forced(model32, cfg32, tokens, 16)
+    with attention_swapped(*plain_versions):
+        full_ref, _ = tf.forward(model32, cfg32, {"tokens": tokens}, use_flash=True)
+        dec_ref = teacher_forced(model32, cfg32, tokens, 16)
+    err_dec, rel_dec = logits_err(dec, full[:, 15:], V)
+    err_full, rel_full = logits_err(full, full_ref, V)
+    err_step, _ = logits_err(dec, dec_ref, V)
+    log(tag, f"{cfg.n_layers} layers upcast to float32: prefill 16 + 8 decode steps vs "
+        f"forward max abs err {err_dec:.3e} (relative norm {rel_dec:.3e}; tolerance 2e-2); "
+        f"kernel vs plain versions' path: forward {err_full:.3e} (relative norm "
+        f"{rel_full:.3e}), decode steps {err_step:.3e} (tolerance 5e-2); " + "; ".join(
+            f"{name} {n} calls held, max abs err {e:.3e}, row err {r:.3e}"
+            for name, (n, e, r) in sorted(held.items())) + " (tolerance 2e-5, rows 1e-4)")
+    if not torch.allclose(dec[..., :V], full[:, 15:, :V], rtol=2e-2, atol=2e-2):
+        raise AssertionError(f"float32: decode_step differs from forward by {err_dec}")
+    if not (err_full <= 5e-2 and err_step <= 5e-2):
+        raise AssertionError(f"float32: kernel-path logits differ from the plain versions' "
+                             f"path: forward {err_full}, decode_step {err_step}")
+    del model32, full, full_ref, dec, dec_ref
+    torch.cuda.empty_cache()
 
 
 def profiled_breakdown(what: str, fn) -> None:
@@ -1479,11 +1714,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     apps = {name: make_app(name, TOKENS) for name in ("wordcount", "eximparse")}
-    expect = {}
+    expect, pairs = {}, {}  # numpy's count of the corpus, and the pairs the map emits
     for M, _, _ in ENGINE_CONFIGS:
         counts = np.bincount(apps["wordcount"][1])
         expect[("wordcount", M)] = {int(k): int(counts[k]) for k in np.flatnonzero(counts)}
-        expect[("eximparse", M)] = exim_expected(apps["eximparse"][1], M)
+        pairs[("wordcount", M)] = TOKENS
+        expect[("eximparse", M)], pairs[("eximparse", M)] = exim_expected(
+            apps["eximparse"][1], M)
     apps = {name: (app, torch.as_tensor(corpus, device="cuda"))
             for name, (app, corpus) in apps.items()}
     log("engine", f"corpora: 2^26 tokens each, made in {time.perf_counter() - t0:.1f} s")
@@ -1500,11 +1737,31 @@ def main() -> int:
     log("launches", f"main path: segment_reduce {launches['segment_reduce']} "
         f"(one per reduce wave), local_reduce {launches['local_reduce']} (one per combiner job)")
     phase_breakdown(apps)
+
+    # The traced and pipelined modes, each path counted from zero.
+    for path, drive in (("traced", lambda: phase_traced(apps, expect, pairs)),
+                        ("pipelined", lambda: phase_pipelined(apps))):
+        segment_reduce.launches = 0
+        local_reduce.launches = 0
+        want = drive()
+        made = {"segment_reduce": segment_reduce.launches,
+                "local_reduce": local_reduce.launches}
+        if made != want:
+            raise AssertionError(f"{path} path launches {made}, want {want}")
+        log("launches", f"{path} path: segment_reduce {made['segment_reduce']}, local_reduce "
+            f"{made['local_reduce']} (as its jobs' reduce waves or groups and combiners)")
+        for name, n in made.items():
+            launches[name] += n
     del apps
     torch.cuda.empty_cache()
 
-    # The serving main path, counted from zero inside.
+    # The serving paths, qwen3-0.6b then gemma-7b (head_dim 256), each
+    # counted from zero inside.
     launches.update(phase_serve())
+    torch.cuda.empty_cache()
+    gemma = phase_serve("gemma-7b", tag="gemma", requests=8, long_new=32)
+    for name, n in gemma.items():
+        launches[name] += n
     torch.cuda.empty_cache()
 
     # The rwkv6-3b path: the WKV6 kernel alone, then serving and scoring,

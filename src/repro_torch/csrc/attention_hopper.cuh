@@ -9,32 +9,39 @@
 // G * Sq = 2 rows) exits at once.  The producer gives its registers up
 // (setmaxnreg 24) so that the consumers can hold 240 each.
 //
-// Ring.  One thread of the producer streams K and V tiles of kKeys = 128
-// keys into a ring of kStages slots (3 at head_dim 128, 4 at 64), each
-// slot with a full and an empty mbarrier.  Each tile is one TMA load of K
-// and one of V per 64 head dims (cp.async.bulk.tensor.4d), with 128-byte
-// swizzle, from a 4-D tensor map of the model's (B, S, n_kv, hd) layout:
-// no transpose, no padding copy.  The maps' S extent is key_end, so slots
-// past it (decode: past kv_len) come back as zeros and are never read;
-// head dims past hd come back zero too.  Shared memory at head_dim 128:
-// Q 32 KB + 3 x (32 + 32) KB of K/V + the barriers + 1 KB of alignment
-// slack, 225 KB of the 227 KB a block may have, so one block per SM.
+// Ring.  One thread of the producer streams K and V tiles of
+// Layout<HD>::kKeys keys into a ring of kStages slots, each slot with a
+// full and an empty mbarrier.  Each tile is one TMA load of K and one of V
+// per 64 head dims (cp.async.bulk.tensor.4d), with 128-byte swizzle, from
+// a 4-D tensor map of the model's (B, S, n_kv, hd) layout: no transpose,
+// no padding copy.  The maps' S extent is key_end, so slots past it
+// (decode: past kv_len) come back as zeros and are never read; head dims
+// past hd come back zero too.  Per instance (shared memory with the
+// barriers and 1 KB of alignment slack, of the 227 KB a block may have,
+// so one block per SM):
+//   HD  64: 128-key tiles, 4 slots, Q 16 KB + 4 x (16 + 16) KB = 145 KB;
+//   HD 128: 128-key tiles, 3 slots, Q 32 KB + 3 x (32 + 32) KB = 225 KB;
+//   HD 256:  64-key tiles, 2 slots, Q 64 KB + 2 x (32 + 32) KB = 193 KB
+//           (128-key tiles would leave room for one slot only).
 //
 // Consumers.  Each loads its 64 Q rows once by cp.async into the same
 // swizzled layout (a tile may span query heads, so Q is not one TMA box).
-// Per tile: S = Q K^T by wgmma m64n128k16, both operands K-major from
-// shared memory; the online softmax on the accumulator registers in log2
-// units (scale * log2(e) folded into one multiply, MUFU.EX2), masks only
-// on tiles that cross the causal diagonal, key_end or the ragged end; then
-// O += P V by wgmma m64nHDk16 with P converted in registers to bfloat16 A
-// fragments (the accumulator layout of S is the A-fragment layout) and V
-// an MN-major operand read from shared memory.  S of tile i and P V of
-// tile i - 1 are issued together, so the softmax of tile i runs while
-// P V is on the tensor cores; the two consumers issue their products in
-// turns (pingpong, named barriers 3 and 4), so one's softmax also runs
+// Per tile: S = Q K^T by wgmma m64nKk16 (K = the tile's keys: n128, or n64
+// at HD 256), both operands K-major from shared memory; the online softmax
+// on the accumulator registers in log2 units (scale * log2(e) folded into
+// one multiply, MUFU.EX2), masks only on tiles that cross the causal
+// diagonal, key_end or the ragged end; then O += P V by wgmma m64nHDk16
+// (n256, wgmma's widest, at HD 256) with P converted in registers to
+// bfloat16 A fragments (the accumulator layout of S is the A-fragment
+// layout) and V an MN-major operand read from shared memory.  S of tile i
+// and P V of tile i - 1 are issued together, so the softmax of tile i runs
+// while P V is on the tensor cores; the two consumers issue their products
+// in turns (pingpong, named barriers 3 and 4), so one's softmax also runs
 // under the other's products.  Every product is fenced, committed and
 // waited on before its registers are touched, and a slot goes back to
 // the producer (one arrival per consumer warp) once P V has read it.
+// Registers per consumer thread: O is HD / 2 floats, S kKeys / 2, the P
+// fragments kKeys / 4 (HD 256: 128 + 32 + 16) of the 240 setmaxnreg gives.
 //
 // Rounding of p.  p goes into P V rounded once to bfloat16, as SDPA and
 // FlashAttention do; the sums l are taken over the float32 p.  The plain
@@ -63,7 +70,6 @@ using attention_tile::Params;
 
 constexpr int kConsumers = 2;
 constexpr int kRows = 64 * kConsumers;  // query rows per block
-constexpr int kKeys = 128;              // keys per K/V tile
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kAtom = 64;               // bfloat16 per 128-byte swizzled row
 constexpr int kAtomRowBytes = 128;
@@ -77,8 +83,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 // other; the 16-byte chunk c of row j sits at chunk c ^ (j % 8).
 template <int HD>
 struct Layout {
+  static_assert(HD == 64 || HD == 128 || HD == 256, "head_dim instance");
   static constexpr int kAtoms = HD / kAtom;
-  static constexpr int kStages = HD == 128 ? 3 : 4;
+  static constexpr int kKeys = HD == 256 ? 64 : 128;   // keys per K/V tile
+  static constexpr int kStages = HD == 256 ? 2 : HD == 128 ? 3 : 4;
   static constexpr int kQBytes = 64 * HD * 2;          // one consumer's rows
   static constexpr int kTileBytes = kKeys * HD * 2;    // one K or V tile
   static constexpr int kQ = 0;
@@ -89,7 +97,8 @@ struct Layout {
   static constexpr int kBytes = kEmpty + 8 * kStages;
   static constexpr size_t kSmem = kBytes + 1024;  // room to align the base
 };
-static_assert(Layout<128>::kSmem <= 232448, "shared memory of one block on an H100");
+static_assert(Layout<128>::kSmem <= 232448 && Layout<256>::kSmem <= 232448,
+              "shared memory of one block on an H100");
 
 // ---- PTX wrappers ---------------------------------------------------------
 
@@ -196,9 +205,11 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
   return smem_desc(addr, 16, 1024);
 }
 // MN-major (V, read as B = V[keys, hd]): 8-key groups 1024 bytes apart,
-// 64-wide column blocks of hd one tile of kKeys rows apart.
+// 64-wide column blocks of hd ("atoms", up to four at HD 256) one tile of
+// KEYS rows apart, as the TMA boxes put them.
+template <int KEYS>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return smem_desc(addr, kKeys * kAtomRowBytes, 1024);
+  return smem_desc(addr, KEYS * kAtomRowBytes, 1024);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -226,6 +237,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 64, float32) = scale_d * D + A (64 x 16) * B (16 x 64), A and B
+// bfloat16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -269,10 +297,57 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x 256, float32) += A (64 x 16, bfloat16 fragments in registers) * B (16 x 256,
+// bfloat16 in shared memory, MN-major): wgmma's widest N, the P V product at HD 256.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
+// S of one K tile: N = the tile's keys.
+template <int KEYS>
+__device__ __forceinline__ void wgmma_ss(float (&d)[KEYS / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (KEYS == 128) {
+    wgmma_ss_n128(d, a, b, scale_d);
+  } else {
+    wgmma_ss_n64(d, a, b, scale_d);
+  }
+}
+
+// O += P V: N = the head dims.
 template <int HD>
 __device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (HD == 128) {
+  if constexpr (HD == 256) {
+    wgmma_rs_n256(d, a, b);
+  } else if constexpr (HD == 128) {
     wgmma_rs_n128(d, a, b);
   } else {
     wgmma_rs_n64(d, a, b);
@@ -288,6 +363,7 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* kmap, const C
                                                 const Params& p) {
   using L = Layout<HD>;
   constexpr int kStages = L::kStages;
+  constexpr int kKeys = L::kKeys;
   constexpr int CPR = HD / 8;  // 16-byte chunks per row
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -383,8 +459,8 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* kmap, const C
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
-        wgmma_ss_n128(s, desc_k_major(qs_u + (kk / 4) * 64 * kAtomRowBytes + col),
-                      desc_k_major(ks + (kk / 4) * kKeys * kAtomRowBytes + col), kk > 0);
+        wgmma_ss<kKeys>(s, desc_k_major(qs_u + (kk / 4) * 64 * kAtomRowBytes + col),
+                        desc_k_major(ks + (kk / 4) * kKeys * kAtomRowBytes + col), kk > 0);
       }
     };
     // O += P V in kKeys / 16 steps, on the V of slot st.
@@ -392,7 +468,7 @@ __device__ __forceinline__ void attention_block(const CUtensorMap* kmap, const C
       const uint32_t vs = base + L::kV + st * L::kTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) {
-        wgmma_rs<HD>(o, pf[kk], desc_mn_major(vs + kk * 16 * kAtomRowBytes));
+        wgmma_rs<HD>(o, pf[kk], desc_mn_major<kKeys>(vs + kk * 16 * kAtomRowBytes));
       }
     };
 
@@ -602,8 +678,10 @@ inline EncodeTiled encode_tiled() {
 
 // The TMA map of one (B, S_alloc = p.Sk, n_kv, hd) bfloat16 K or V tensor as
 // the 4-D (hd, n_kv, S, B), its S extent cut to p.key_end, boxes of
-// 64 head dims x 1 head x kKeys keys x 1 batch, 128-byte swizzle, zeros
-// outside.
+// 64 head dims x 1 head x Layout<HD>::kKeys keys x 1 batch, 128-byte
+// swizzle, zeros outside (a box wholly past hd, as the fourth at hd 192,
+// comes back all zeros).
+template <int HD>
 inline cudaError_t kv_map(CUtensorMap* map, const void* data, const Params& p) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
@@ -612,7 +690,7 @@ inline cudaError_t kv_map(CUtensorMap* map, const void* data, const Params& p) {
                               static_cast<cuuint64_t>(p.key_end > 0 ? p.key_end : 1),
                               static_cast<cuuint64_t>(p.B)};
   const cuuint64_t strides[3] = {row, row * p.n_kv, row * p.n_kv * p.Sk};
-  const cuuint32_t box[4] = {kAtom, 1, kKeys, 1};
+  const cuuint32_t box[4] = {kAtom, 1, Layout<HD>::kKeys, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(data),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -630,8 +708,8 @@ int launch(const Params& p, cudaStream_t stream) {
       kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (granted != cudaSuccess) return static_cast<int>(granted);
   CUtensorMap kmap, vmap;
-  cudaError_t err = kv_map(&kmap, p.k, p);
-  if (err == cudaSuccess) err = kv_map(&vmap, p.v, p);
+  cudaError_t err = kv_map<HD>(&kmap, p.k, p);
+  if (err == cudaSuccess) err = kv_map<HD>(&vmap, p.v, p);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.G * p.Sq + kRows - 1) / kRows, p.B * p.n_kv, p.n_splits);
   kKernel<<<grid, kThreads, smem, stream>>>(kmap, vmap, p);

@@ -23,12 +23,14 @@
 // tile here runs on the CUDA cores and exists to hold the algorithm against
 // the plain version at float32 tolerance; no model path on the card runs
 // it.  A block takes kRows = 64 query rows, four warps of 16 rows, and
-// walks tiles of kKeys = 64 keys staged in shared memory by cp.async, two
-// stages deep, K and V together; keys past the block's last visible key
-// are never loaded, rows and head dims past the tensor's edge are
-// zero-filled.  Products are float32 FMAs on register fragments laid out
-// as the m16n8 accumulator of mma.sync.  A block holds (64 + 4 * 64) rows
-// of hd + 4 floats in shared memory: 165 KB at head_dim 128, 85 KB at 64.
+// walks tiles of keys_f32<HD>() keys (64, or 32 at head_dim 256) staged in
+// shared memory by cp.async, two stages deep, K and V together; keys past
+// the block's last visible key are never loaded, rows and head dims past
+// the tensor's edge are zero-filled (cp.async's zero-fill).  Products are
+// float32 FMAs on register fragments laid out as the m16n8 accumulator of
+// mma.sync.  A block holds (64 + 4 * keys) rows of hd + 4 floats in shared
+// memory: 85 KB at head_dim 64, 165 KB at 128, 195 KB at 256 (64-key tiles
+// there would need 325 KB).
 
 #pragma once
 
@@ -38,10 +40,9 @@
 namespace attention_tile {
 
 constexpr int kRows = 64;   // query rows per float32 block
-constexpr int kKeys = 64;   // keys per float32 tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxHD = 128;  // head dims up to 128; row width of the partials
+constexpr int kMaxHD = 256;  // head dims up to 256; row width of the partials
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -56,7 +57,7 @@ struct Params {
   int causal;        // mask kpos <= q_offset + qi
   int q_offset;
   int n_splits;
-  int split_keys;    // keys per split, a multiple of both tiles' keys
+  int split_keys;    // keys per split, a multiple of both tiles' keys at this hd
   float scale;
 };
 
@@ -116,15 +117,22 @@ __host__ __device__ constexpr int row_stride() {  // shared-memory row, padded 1
 }
 
 template <int HD>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return static_cast<size_t>(kRows + 4 * kKeys) * row_stride<HD>() * sizeof(float);
+__host__ __device__ constexpr int keys_f32() {  // keys per float32 tile
+  return HD == 256 ? 32 : 64;
 }
+
+template <int HD>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return static_cast<size_t>(kRows + 4 * keys_f32<HD>()) * row_stride<HD>() * sizeof(float);
+}
+static_assert(smem_bytes<256>() <= 232448, "shared memory of one block on an H100");
 
 // One float32 block: kRows query rows of one (batch, kv head), one split of
 // keys.  kSplit compiles in the partial-output path (decode only).
 template <int HD, bool kSplit>
 __device__ __forceinline__ void attention_block_f32(const Params& p) {
   constexpr int LD = row_stride<HD>();
+  constexpr int kKeys = keys_f32<HD>();
   constexpr int CH = 4;          // floats per 16 B chunk
   constexpr int CPR = HD / CH;   // chunks per row
   constexpr int NT = kKeys / 8;  // n8 tiles of S

@@ -11,13 +11,16 @@
 // block and walks 512-key chunks in order.  At prefill (Sq = 2048, G = 2)
 // that is 4096 rows, more than a block can hold, so rows are tiled by 128.
 //   bfloat16 runs the Hopper tile of flash_attention.cu
-//   (attention_hopper.cuh: a producer warp, a TMA ring of 3 slots of
-//   128-key K/V tiles, two wgmma consumer warpgroups of 64 rows, 230,448 B
-//   of shared memory, 168 registers at the launch bound raised to 240 per
-//   consumer, no spills, p rounded once to bfloat16).  Its K/V maps end at
+//   (attention_hopper.cuh: a producer warp, a TMA ring of K/V tiles, two
+//   wgmma consumer warpgroups of 64 rows, 168 registers at the launch
+//   bound raised to 240 per consumer, no spills, p rounded once to
+//   bfloat16): at hd <= 128 3 slots of 128-key tiles in 230,448 B of
+//   shared memory, at hd <= 256 2 slots of 64-key tiles in 197,664 B, with
+//   128 floats of O per consumer thread.  Its K/V maps end at
 //   key_end = min(S_max, kv_len), so slots past kv_len come back as zeros
 //   and are never read.
-//   float32 runs the CUDA-core tile (attention_tile.cuh, 194 registers).
+//   float32 runs the CUDA-core tile (attention_tile.cuh; 64-key tiles, 32
+//   at hd > 128).
 // At decode (Sq = 1) each block has G * Sq = 2 live rows, so one consumer
 // warpgroup works and the other exits, and there are only B * n_kv row
 // tiles (64 at B = 8) for 132 SMs, each of which would stream a whole cache
@@ -105,9 +108,10 @@ int combine(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  q/o (B, Sq, Hq, hd), caches
 // (B, S_max, n_kv, hd), contiguous, 16-byte aligned; hd a multiple of 16 up
-// to 128.  With n_splits > 1, part_acc holds n_splits * B * n_kv * G * Sq *
-// 128 floats and part_ml twice n_splits * B * n_kv * G * Sq; split_keys is
-// a multiple of 128.
+// to 256.  With n_splits > 1, part_acc holds n_splits * B * n_kv * G * Sq *
+// kMaxHD (256) floats and part_ml twice n_splits * B * n_kv * G * Sq;
+// split_keys is a multiple of the bfloat16 tile's keys at this hd (128, or
+// 64 at hd > 128), which the float32 tile's 64 or 32 divide.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v, void* o,
                                        float* part_acc, float* part_ml, int dtype, int B,
                                        int Sq, int S_max, int Hq, int n_kv, int hd, int kv_len,
@@ -126,10 +130,13 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   p.scale = scale;
   int err;
   if (dtype == 1) {
-    err = hd <= 64 ? attention_hopper::launch<64, decode_attention_bf16<64>>(p, stream)
-                   : attention_hopper::launch<128, decode_attention_bf16<128>>(p, stream);
+    err = hd <= 64    ? attention_hopper::launch<64, decode_attention_bf16<64>>(p, stream)
+          : hd <= 128 ? attention_hopper::launch<128, decode_attention_bf16<128>>(p, stream)
+                      : attention_hopper::launch<256, decode_attention_bf16<256>>(p, stream);
   } else {
-    err = hd <= 64 ? launch_f32<64>(p, stream) : launch_f32<128>(p, stream);
+    err = hd <= 64 ? launch_f32<64>(p, stream)
+          : hd <= 128 ? launch_f32<128>(p, stream)
+                      : launch_f32<256>(p, stream);
   }
   if (err != 0 || n_splits == 1) return err;
   return dtype == 1 ? combine<__nv_bfloat16>(p, stream) : combine<float>(p, stream);

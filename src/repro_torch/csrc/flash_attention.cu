@@ -13,18 +13,24 @@
 // layout: TMA maps and the block's own offsets address it, so there is no
 // transpose and no padding copy.
 //   bfloat16 (attention_hopper.cuh): 384 threads, one producer warp
-//   streaming 128-key K/V tiles by TMA into a ring of 3 slots (4 at
-//   head_dim <= 64), two consumer warpgroups of 64 rows running QK^T and PV
-//   on wgmma in turns, each overlapping its softmax with its previous PV.
-//   Shared memory 230,448 B at head_dim 128 (148,544 B at 64), one block
-//   per SM; ptxas: 168 registers at the 384-thread launch bound, which
-//   setmaxnreg moves to 240 per consumer and 24 per producer thread, no
-//   spills.  p goes into PV rounded once to bfloat16: the remainder
-//   product cost 36-39 % more time at S = 8192 and every check passes
-//   without it (PERF.md, the kernel findings).
+//   streaming K/V tiles by TMA into a ring, two consumer warpgroups of 64
+//   rows running QK^T and PV on wgmma in turns, each overlapping its
+//   softmax with its previous PV.  One instance per head_dim class, one
+//   block per SM:
+//     hd <= 64:  128-key tiles, 4 slots, 148,544 B of shared memory;
+//     hd <= 128: 128-key tiles, 3 slots, 230,448 B;
+//     hd <= 256: 64-key tiles, 2 slots, 197,664 B; S on wgmma m64n64k16,
+//                PV on m64n256k16; per consumer thread 128 floats of O,
+//                32 of S and 16 registers of P fragments.
+//   ptxas: 168 registers at the 384-thread launch bound, which setmaxnreg
+//   moves to 240 per consumer and 24 per producer thread; no spills
+//   (chip_smoke.py requires no LDL/STL in the SASS).  p goes into PV
+//   rounded once to bfloat16: the remainder product cost 36-39 % more
+//   time at S = 8192 and every check passes without it (PERF.md, the
+//   kernel findings).
 //   float32 (attention_tile.cuh): the CUDA-core tile, 64 rows, 64-key
-//   tiles, 168,960 B of shared memory and 192 registers at head_dim 128,
-//   for holding the algorithm at float32 tolerance.
+//   tiles (32 at hd > 128), 168,960 B of shared memory at head_dim 128 and
+//   199,680 B at 256, for holding the algorithm at float32 tolerance.
 //
 // Bound on an H100: operations.  Causal attention over S keys does
 // 2 * 2 * S^2 / 2 * hd flops per query head (QK^T and PV); at B = 1,
@@ -67,8 +73,9 @@ int launch_f32(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  q/o (B, Sq, Hq, hd), k/v (B, Sk, n_kv, hd),
-// contiguous, 16-byte aligned; hd a multiple of 16 up to 128, Hq a multiple
-// of n_kv.
+// contiguous, 16-byte aligned; hd a multiple of 16 up to 256 (the instance
+// of the next class up, 64, 128 or 256, runs it with zeros past hd), Hq a
+// multiple of n_kv.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int dtype, int B, int Sq, int Sk, int Hq, int n_kv,
                                       int hd, int causal, float scale, cudaStream_t stream) {
@@ -80,13 +87,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.causal = causal;
   p.q_offset = 0;
   p.n_splits = 1;
-  const int tile = attention_hopper::kKeys;
-  p.split_keys = (Sk + tile - 1) / tile * tile;
+  p.split_keys = (Sk + 127) / 128 * 128;  // one split: whole tiles of every instance
   p.scale = scale;
   if (dtype == 1) {
-    return hd <= 64
-               ? attention_hopper::launch<64, flash_attention_bf16<64>>(p, stream)
-               : attention_hopper::launch<128, flash_attention_bf16<128>>(p, stream);
+    if (hd <= 64) return attention_hopper::launch<64, flash_attention_bf16<64>>(p, stream);
+    if (hd <= 128) return attention_hopper::launch<128, flash_attention_bf16<128>>(p, stream);
+    return attention_hopper::launch<256, flash_attention_bf16<256>>(p, stream);
   }
-  return hd <= 64 ? launch_f32<64>(p, stream) : launch_f32<128>(p, stream);
+  if (hd <= 64) return launch_f32<64>(p, stream);
+  if (hd <= 128) return launch_f32<128>(p, stream);
+  return launch_f32<256>(p, stream);
 }

@@ -10,13 +10,16 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: dtype codes of the attention kernels' C entry points
 ATTENTION_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the widest head the kernels take (their largest instance, kMaxHD)
+MAX_HEAD_DIM = 256
 
 
 def check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> None:
     """Validate the CUDA operands of an attention kernel: q (B, Sq, Hq, hd),
     k and v (B, Sk, n_kv, hd), one dtype (float32 or bfloat16), contiguous,
-    hd a multiple of 16 up to 128, Hq a multiple of n_kv."""
+    hd a multiple of 16 up to 256, Hq a multiple of n_kv.  The kernels run
+    hd in instances of 64, 128 and 256 head dims, zeros past hd."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"{name}: q, k and v must be on one CUDA device, got {q.device}, "
@@ -38,8 +41,9 @@ def check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
             f"{name}: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
             "(batch, head_dim, or Hq not a multiple of n_kv)"
         )
-    if hd % 16 or not 16 <= hd <= 128:
-        raise ValueError(f"{name}: head_dim {hd} must be a multiple of 16 up to 128")
+    if hd % 16 or not 16 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head_dim {hd} must be a multiple of 16 up to {MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -54,7 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Query head h reads kv head h // (Hq // n_kv).  CPU tensors take the
     plain version; CUDA tensors (float32 or bfloat16, contiguous, hd a
-    multiple of 16 up to 128) launch the kernel on the current stream, or
+    multiple of 16 up to 256) launch the kernel on the current stream, or
     raise.  ``flash_attention.launches`` counts kernel launches.
     """
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":

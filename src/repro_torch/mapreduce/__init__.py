@@ -1,9 +1,10 @@
 """MapReduce substrate of the port: phase primitives, pluggable backends,
-the fused execution plan and the paper's two applications.
+the execution plan and its modes, and the paper's two applications.
 
     phases.py   — the shared implementation of each phase
     backends.py — swappable shuffle/reduce strategies + registries
-    plan.py     — ExecutionPlan: wave steppers, fused mode
+    plan.py     — ExecutionPlan: per-grant wave steppers; fused, pipelined
+                  and traced modes
     engine.py   — JobConfig/MapReduceApp + build_job
     apps.py     — WordCount and Exim mainlog parsing
     datagen.py  — synthetic corpora (same RNG draws as the reference)

@@ -130,9 +130,12 @@ class ShuffleBackend:
 
     ``partition`` sees the job's full flat pair stream and returns global
     (R_pad, cap) partitions plus a ``dropped`` overflow count.
+    ``collective`` marks a backend whose layout depends on the grant W (the
+    reference's ``all_to_all``); the lexsort barrier is W-independent.
     """
 
     name: str = "abstract"
+    collective: bool = False
 
     def partition(self, cfg, keys, values, pvalid):
         raise NotImplementedError

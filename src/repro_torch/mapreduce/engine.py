@@ -8,9 +8,10 @@ capacity-bounded partitions; reducers aggregate sorted runs through a
 pluggable reduce backend.  That slot scheduling is what makes total time
 depend on (M, R) the way the paper models.
 
-This slice ports the fused mode only.  ``build_job`` refuses what later
-slices bring: telemetry recorders and the pipelined mode (ROADMAP.md
-queue 1, item 5) and the all-to-all shuffle (item 6).
+``build_job`` runs the plan's fused mode, its traced mode when given a
+telemetry recorder, and its pipelined mode at ``overlap_depth > 1``, as
+the reference's does.  It refuses the all-to-all shuffle, which a later
+slice brings (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -84,24 +85,27 @@ def build_job(app: MapReduceApp, cfg: JobConfig, input_len: int, *,
 
     Returns ``job(tokens (input_len,) int32) -> (out_keys (R, C),
     out_vals (R, C), dropped ())``, all on ``device``.
+
+    ``recorder`` (optional) turns on per-phase telemetry: any object with
+    the :class:`repro_torch.telemetry.PhaseRecorder` protocol
+    (``start_job(app_name, cfg, input_len) -> trace``, the trace with
+    ``record_phase(name, wall_s, **counters)`` and ``finish(total_s)``).
+    The phases are then fenced and wall-clocked, and each call of the job
+    appends one trace.  Without one, ``cfg.overlap_depth > 1`` runs the
+    pipelined mode and depth 1 the fused mode, which costs nothing extra.
     """
-    if recorder is not None:
-        raise NotImplementedError(
-            "recorder= needs the traced mode, which a later slice of the "
-            "port brings (ROADMAP.md queue 1, item 5)"
-        )
-    if cfg.overlap_depth > 1:
-        raise NotImplementedError(
-            "overlap_depth > 1 needs the pipelined mode, which a later slice "
-            "of the port brings (ROADMAP.md queue 1, item 5)"
-        )
     if cfg.shuffle_backend in _backends.UNPORTED_SHUFFLE_BACKENDS:
         raise NotImplementedError(
             f"shuffle backend {cfg.shuffle_backend!r} is ported by a later "
             f"slice (ROADMAP.md "
             f"{_backends.UNPORTED_SHUFFLE_BACKENDS[cfg.shuffle_backend]})"
         )
-    return ExecutionPlan(app, cfg, input_len, device=device).fused()
+    plan = ExecutionPlan(app, cfg, input_len, device=device)
+    if recorder is not None:
+        return plan.traced(recorder)
+    if cfg.overlap_depth > 1:
+        return plan.pipelined()
+    return plan.fused()
 
 
 def collect_results(out_keys, out_vals) -> dict[int, int]:

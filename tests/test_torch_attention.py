@@ -21,6 +21,7 @@ from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref,
     split_plan,
+    tile_keys,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
@@ -49,6 +50,9 @@ FLASH_CASES = [
     (2, 100, 100, 4, 1, 32, True),     # ragged sequence
     (1, 64, 192, 2, 2, 80, False),     # Sk > Sq, odd head_dim
     (1, 128, 128, 16, 2, 128, True),   # deep GQA grouping
+    (1, 128, 128, 2, 2, 256, True),    # gemma-7b's head_dim 256, MHA
+    (1, 64, 192, 4, 2, 256, False),    # head_dim 256, Sk > Sq, GQA
+    (2, 100, 100, 2, 1, 192, True),    # head_dim 192: the 256 instance, zeros past hd
 ]
 
 
@@ -78,6 +82,8 @@ DECODE_CASES = [
     (2, 8, 256, 4, 2, 32, 8),      # prefill-shaped: the whole prompt at once
     (1, 8, 256, 4, 2, 64, 40),     # 8 new rows appended after 32
     (1, 4, 128, 4, 2, 32, 140),    # kv_len > S_max: every slot visible
+    (2, 1, 256, 2, 2, 256, 200),   # gemma-7b's head_dim 256: decode at a ragged end
+    (1, 8, 256, 4, 2, 256, 40),    # head_dim 256: 8 new rows after 32
 ]
 
 
@@ -96,6 +102,19 @@ def test_decode_plain_bfloat16():
     got = decode_attention(tq, tk, tv, 100)
     _close(got, jax_decode(q, k, v, 100, block_k=128), jax_decode_ref(q, k, v, 100),
            tol=TOL["bfloat16"])
+
+
+def test_plain_bfloat16_at_head_dim_256():
+    """gemma-7b's head_dim in bfloat16, both kernels' plain versions."""
+    (q, k, v), (tq, tk, tv) = _inputs(13, (1, 128, 2, 256), (1, 128, 2, 256),
+                                      (1, 128, 2, 256), dtype="bfloat16")
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    _close(got, jax_flash(q, k, v, causal=True), jax_attention_ref(q, k, v, causal=True),
+           tol=TOL["bfloat16"])
+    got = decode_attention(tq[:, -1:], tk, tv, 128)
+    _close(got, jax_decode(q[:, -1:], k, v, 128, block_k=128),
+           jax_decode_ref(q[:, -1:], k, v, 128), tol=TOL["bfloat16"])
 
 
 def test_decode_plain_ignores_garbage_beyond_kv_len():
@@ -132,7 +151,7 @@ def test_masked_row_gives_zero_not_nan():
     (1, 1, 16, 8, 10, 12, (1, 128)),              # kv_len past S_max
 ])
 def test_split_plan(B, Sq, Hq, nkv, S_max, kv_len, want):
-    n_splits, split_keys = split_plan(B, Sq, Hq, nkv, S_max, kv_len, 132)
+    n_splits, split_keys = split_plan(B, Sq, Hq, nkv, S_max, kv_len, 132, 128)
     assert (n_splits, split_keys) == want
     assert split_keys % 128 == 0 and (n_splits - 1) * split_keys < min(S_max, kv_len)
 
@@ -154,17 +173,51 @@ def test_split_plan_tiles_the_visible_keys(B, Sq, Hq, nkv, S_max, kv_len, target
     key that some row of its block sees (decode: the last query sees every
     visible key, so each split's first key must be one), and the grid is
     at most one wave of ``target`` blocks."""
+    _check_split_plan(B, Sq, Hq, nkv, S_max, kv_len, target, 128)
+
+
+def _check_split_plan(B, Sq, Hq, nkv, S_max, kv_len, target, hd):
     key_end = min(S_max, kv_len)
-    n_splits, split_keys = split_plan(B, Sq, Hq, nkv, S_max, kv_len, target)
-    assert n_splits >= 1 and split_keys % 128 == 0
+    tile = tile_keys(hd)
+    n_splits, split_keys = split_plan(B, Sq, Hq, nkv, S_max, kv_len, target, hd)
+    assert n_splits >= 1 and split_keys % tile == 0
     assert (n_splits - 1) * split_keys < key_end <= n_splits * split_keys
     last_query = kv_len - 1  # the position the block's last row sits at
     for split in range(n_splits):
-        tiles = range(split * split_keys, min((split + 1) * split_keys, key_end), 128)
+        tiles = range(split * split_keys, min((split + 1) * split_keys, key_end), tile)
         assert tiles and all(t <= min(last_query, key_end - 1) for t in tiles)
     row_tiles = B * nkv * -(-(Hq // nkv) * Sq // 128)
     assert row_tiles * n_splits <= max(target, row_tiles)  # at most one wave
     if 2 * row_tiles > target:
         assert n_splits == 1  # the rows alone fill half the card or more
-    elif key_end > 128:
+    elif key_end > tile:
         assert n_splits > 1  # decode at G * Sq = 2: the keys are split
+
+
+@pytest.mark.parametrize("B,Sq,Hq,nkv,S_max,kv_len,want", [
+    (1, 1, 16, 16, 4096, 4096, (8, 8 * 64)),      # gemma-7b decode at batch 1
+    (8, 1, 16, 16, 4096, 4096, (1, 64 * 64)),     # batch 8: 128 row blocks fill the card
+    (1, 1, 16, 16, 32768, 32768, (8, 64 * 64)),
+    (1, 1, 16, 16, 256, 9, (1, 64)),              # one 64-key tile
+    (2, 1, 4, 2, 300, 200, (4, 64)),              # a ragged last split
+])
+def test_split_plan_at_head_dim_256(B, Sq, Hq, nkv, S_max, kv_len, want):
+    """Past head_dim 128 the bfloat16 tile holds 64 keys, and the splits
+    are whole 64-key tiles."""
+    assert tile_keys(256) == 64 and tile_keys(128) == tile_keys(64) == 128
+    assert split_plan(B, Sq, Hq, nkv, S_max, kv_len, 132, 256) == want
+    _check_split_plan(B, Sq, Hq, nkv, S_max, kv_len, 132, 256)
+
+
+@pytest.mark.parametrize("B,Sq,Hq,nkv,S_max,kv_len", [
+    (8, 1, 16, 16, 4096, 4096),     # gemma-7b decode at the long-prompt cache
+    (8, 2048, 16, 16, 4096, 2048),  # gemma-7b prefill
+    (2, 1, 16, 8, 8192, 6000),
+    (3, 1, 4, 2, 96, 7),
+    (1, 4, 4, 2, 128, 140),         # kv_len past S_max
+    (2, 1, 4, 2, 1000, 777),
+])
+@pytest.mark.parametrize("target", [132, 4 * 132])
+def test_split_plan_tiles_the_visible_keys_at_head_dim_256(B, Sq, Hq, nkv, S_max, kv_len,
+                                                           target):
+    _check_split_plan(B, Sq, Hq, nkv, S_max, kv_len, target, 256)

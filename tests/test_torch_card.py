@@ -20,7 +20,14 @@ from repro_torch.kernels.segment_reduce import (
     segment_reduce,
     segment_reduce_ref,
 )
-from repro_torch.mapreduce import JobConfig, build_job, wordcount, wordcount_corpus
+from repro_torch.mapreduce import (
+    ExecutionPlan,
+    JobConfig,
+    build_job,
+    wordcount,
+    wordcount_corpus,
+)
+from repro_torch.telemetry import PhaseRecorder
 
 KERNELS = {
     "segment_reduce": (segment_reduce, segment_reduce_ref),
@@ -81,6 +88,36 @@ def test_cuda_backend_equals_torch_backend(combiner):
     assert all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["torch"]))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", [False, True])
+@pytest.mark.parametrize("M,R,W", [(7, 3, 2), (37, 40, 4)])
+def test_pipelined_and_traced_jobs_equal_fused(combiner, M, R, W):
+    """The pipelined mode at depths 1-3 and the traced mode at depths 1 and
+    2, reduce backend ``cuda``: bit-exact against fused, one
+    ``segment_reduce`` launch a wave group and one ``local_reduce`` a
+    combiner job; the traces conserve."""
+    _needs_card()
+    corpus = torch.from_numpy(wordcount_corpus(50_000, 500, seed=3)).cuda()
+    cfg = JobConfig(M, R, W, combiner=combiner, reduce_backend="cuda")
+    plan = ExecutionPlan(wordcount(500), cfg, len(corpus))
+    fused = plan.fused()(corpus)
+    for depth in (1, 2, 3):
+        seg, loc = segment_reduce.launches, local_reduce.launches
+        got = plan.pipelined(depth=depth)(corpus)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, fused)), depth
+        assert segment_reduce.launches - seg == -(-R // min(W * depth, R))
+        assert local_reduce.launches - loc == int(combiner)
+    recorder = PhaseRecorder()
+    for depth in (1, 2):
+        got = plan.traced(recorder, depth=depth)(corpus)
+        assert all(torch.equal(a, b) for a, b in zip(got, fused)), depth
+        trace = recorder.last
+        assert trace.check_conservation() == []
+        assert trace.counter("map", "pairs_emitted") == len(corpus)
+        assert ("pipeline" in trace.phase_names()) == (depth > 1)
+
+
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
 
@@ -110,6 +147,12 @@ def _assert_close(got, want, dtype):
     (2, 129, 129, 4, 2, 80, True),      # head_dim 80: a partial second swizzle box
     (2, 255, 255, 4, 2, 64, True),      # head_dim 64, B > 1 with a ragged S
     (3, 255, 255, 4, 1, 128, True),     # a batch's last tile must not read the next
+    # head_dim 256 (gemma-7b): 64-key tiles, P V on m64n256k16
+    (1, 256, 256, 4, 4, 256, True),     # MHA, causal
+    (1, 100, 300, 2, 2, 256, False),    # non-causal, Sk > Sq, ragged
+    (2, 129, 129, 4, 2, 256, True),     # ragged S, B > 1
+    (1, 40, 40, 8, 2, 256, True),       # a 128-row tile spans the G = 4 query heads
+    (1, 65, 200, 4, 1, 192, False),     # head_dim 192: a fourth swizzle box all zeros
 ])
 def test_flash_attention_matches_plain(dtype, B, Sq, Sk, Hq, nkv, hd, causal):
     _needs_card()
@@ -137,6 +180,11 @@ def test_flash_attention_matches_plain(dtype, B, Sq, Sk, Hq, nkv, hd, causal):
     (3, 1, 255, 16, 8, 64, 129),        # head_dim 64, B > 1, split at a ragged end
     (2, 1, 4096, 16, 8, 128, 4000),     # decode split, the cache's tail unwritten
     (2, 255, 255, 4, 2, 128, 255),      # prefill of a whole ragged cache, B > 1
+    # head_dim 256 (gemma-7b)
+    (1, 1, 4096, 16, 16, 256, 3001),    # decode: 64-key splits, the last one ragged
+    (2, 1, 1000, 4, 2, 256, 777),       # G = 2, split at a ragged end
+    (1, 100, 512, 4, 4, 256, 300),      # prefill rows after 200 cached
+    (2, 40, 255, 8, 2, 256, 200),       # rows span the G = 4 heads, ragged S_max
 ])
 def test_decode_attention_matches_plain(dtype, B, Sq, S_max, Hq, nkv, hd, kv_len):
     _needs_card()
@@ -168,6 +216,8 @@ def test_decode_attention_ignores_garbage_beyond_kv_len():
     (2, 1, 8192, 16, 8, 128, 3000),     # decode, keys split across blocks
     (2, 100, 1024, 16, 8, 128, 300),    # prefill rows after 200 cached
     (1, 4, 512, 4, 2, 80, 131),         # head_dim 80, kv_len inside a key tile
+    (1, 1, 4096, 16, 16, 256, 3001),    # head_dim 256, decode split at a ragged end
+    (2, 100, 1024, 4, 2, 256, 300),     # head_dim 256, prefill rows after 200 cached
 ])
 def test_decode_attention_ignores_nan_past_kv_len(dtype, B, Sq, S_max, Hq, nkv, hd, kv_len):
     """Cache slots past kv_len poisoned with NaN: the output stays finite and
@@ -195,6 +245,9 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take():
         decode_attention(qb, kb.transpose(1, 2).contiguous().transpose(1, 2), kb, 8)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(qb[..., :40], kb[..., :40], kb[..., :40])
+    q, k = _attn_inputs(3, torch.bfloat16, (1, 8, 2, 272), (1, 8, 2, 272))
+    with pytest.raises(ValueError, match="up to 256"):
+        decode_attention(q, k, k, 8)
 
 
 WKV6_TOL = 2e-3  # tests/test_kernels.py::TestWKV6

@@ -93,7 +93,7 @@ def test_weights_carried_across(models):
 
 @pytest.mark.parametrize("arch,use_flash", [
     (arch, use_flash) for arch in ARCHS for use_flash in (False, True)
-] + [("gemma-7b", False)])  # GeGLU, MHA; its head_dim 256 is past the kernels' 128
+] + [("gemma-7b", False)])  # GeGLU, MHA; at its head_dim 256 below
 def test_forward_matches_reference(arch, use_flash, models):
     jcfg, params, cfg, model = models(arch)
     jt, tt = _tokens(1, 2, 24, cfg.vocab_size)
@@ -159,6 +159,50 @@ def test_prefill_step_matches_reference(arch, models):
         model, {"tokens": tt})
     assert got.shape == want.shape and state.pos == 8
     _close(got, want)
+
+
+#: gemma-7b at head_dim 256 is compared in float32: in bfloat16 this
+#: 2-layer config amplifies the two packages' rounding to 2.3e-2 on the
+#: plain path and 2.4e-2 on the kernel path (one logit of 24576 past 2e-2
+#: either way), in float32 both agree to 6e-6.
+GEMMA_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def gemma256():
+    """gemma-7b's smoke config with its real head_dim, 256, back, computed
+    in float32."""
+    return _pair("gemma-7b", head_dim=256, compute_dtype="float32")
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_gemma_head_dim_256_forward_matches_reference(use_flash, gemma256):
+    """With ``use_flash`` both packages go through their attention kernels
+    (Pallas in interpret mode; the port's plain versions) at head_dim 256."""
+    jcfg, params, cfg, model = gemma256
+    assert cfg.resolved_head_dim == 256
+    jt, tt = _tokens(10, 2, 24, cfg.vocab_size)
+    want, _ = jtf.forward(params, jcfg, {"tokens": jt}, use_flash=use_flash)
+    got, _ = tf.forward(model, cfg, {"tokens": tt}, use_flash=use_flash)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _close(got, want, GEMMA_TOL)
+
+
+def test_gemma_head_dim_256_decode_teacher_forced_matches_reference(gemma256):
+    """Prefill 8 tokens, then 4 single steps through the kernel path, into a
+    float32 128-slot cache (a whole block of the reference's decode kernel)."""
+    jcfg, params, cfg, model = gemma256
+    B, S, k = 2, 12, 8
+    jt, tt = _tokens(11, B, S, cfg.vocab_size)
+    jstate = jtf.init_decode_state(jcfg, B, 128, cache_dtype=jnp.float32)
+    state = tf.init_decode_state(cfg, B, 128, cache_dtype=torch.float32, device="cpu")
+    for s0, s1 in [(0, k)] + [(i, i + 1) for i in range(k, S)]:
+        want, jstate = jtf.decode_step(params, jcfg, jstate, {"tokens": jt[:, s0:s1]},
+                                       use_flash=True)
+        got, state = tf.decode_step(model, cfg, state, {"tokens": tt[:, s0:s1]},
+                                    use_flash=True)
+        _close(got, want, GEMMA_TOL)
+    assert state.pos == int(jstate["pos"]) == S
 
 
 def test_decode_matches_forward_with_f32_cache(models):

@@ -169,13 +169,13 @@ def mode_splits() -> dict:
         bound = (2 * B * Hq * hd + 2 * B * S * n_kv * hd) * 2 / HBM_BYTES_PER_S * 1e3
         sdpa = device_ms(lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True))
-        plan = ops.split_plan(B, 1, Hq, n_kv, S, S, ops.target_blocks(q.device.index))
+        plan = ops.split_plan(B, 1, Hq, n_kv, S, S, ops.target_blocks(q.device.index), hd)
         readings = []
         for rnd in range(3):  # three rounds, to show the spread
             for n in (1, 2, 3, 4, 8, 9, 16, 32, 64):
                 target = n * row_blocks
                 with unittest.mock.patch.object(ops, "target_blocks", lambda _i, t=target: t):
-                    got = ops.split_plan(B, 1, Hq, n_kv, S, S, target)
+                    got = ops.split_plan(B, 1, Hq, n_kv, S, S, target, hd)
                     ms = device_ms(lambda: ops.decode_attention(q, k, v, S))
                 readings.append({"round": rnd, "target": target, "splits": got[0],
                                  "split_keys": got[1], "ms": ms})
