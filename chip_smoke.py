@@ -48,8 +48,27 @@ Phases, one or more printed lines each, in run order:
    ``segment_reduce`` launches and one ``local_reduce`` (with the combiner)
    a job, the traced form at depth 2 with its ``pipeline`` phase
    conserving; each depth's job wall beside fused's, as information;
-   phases 7 and 8 each count their launches from zero;
-9. serve: the LM serving path (the second main path) at the full width of
+9. a2a: both applications at 2**26 tokens at the engine's (M, R, W) with
+   the all-to-all shuffle (pack, block transpose, unpack on one card):
+   the fused job equal to the numpy count when nothing dropped, traced
+   and pipelined (D = 2) bit-equal to it, the traced form conserving,
+   WordCount's combiner run equal to the run without it; then the
+   sharded mode on an NCCL process group of one rank at (20, 5, 1),
+   bit-equal to the emulated mode at W = 1, with its per-worker overflow
+   stats; exactly ceil(R / W) ``segment_reduce`` launches an emulated
+   job, ceil(R / min(W D, R)) a pipelined one, R a sharded one at W = 1
+   and one ``local_reduce`` a combiner job; job and traced shuffle walls
+   beside the lexsort ones, as information;
+10. elastic: resumable jobs (WordCount and Exim at (20, 5), and WordCount
+   with its combiner, backend ``"cuda"``) under the grant schedule
+   1 -> 4 -> 2, lexsort bit-equal to fused and all_to_all's collected
+   results equal to fused's; lexsort snapshots through
+   ``CheckpointManager`` mid-map, right after the shuffle and
+   mid-reduce, each restored into a fresh job and resumed bit-equal to
+   fused, with its bytes and save and restore walls; one
+   ``segment_reduce`` a reduce step and one ``local_reduce`` a combine
+   step; phases 7-10 each count their launches from zero;
+11. serve: the LM serving path (the second main path) at the full width of
    qwen3-0.6b: latency profile, fit and SLO batch pick, 32 requests, the
    prediction at unprofiled batches 3 and 6 against a measurement, a batch
    of 2048-token prompts, decode-vs-forward logits, the 28-layer logits of
@@ -58,13 +77,13 @@ Phases, one or more printed lines each, in run order:
    scoring logits, loss and time, attention launch counts equal to 28 per
    decode_step and forward call the phase drives, and the device time by
    kernel of the long prompts' prefill and of one decode step;
-10. gemma: the same serving path at the full width of gemma-7b (28 layers,
+12. gemma: the same serving path at the full width of gemma-7b (28 layers,
    16 heads of 256, GeGLU, vocabulary 256000, 17 GB of bf16 weights): 8
    requests, 8 prompts of 2048 tokens with 32 new tokens into a 4096-slot
    cache, each layer's attention call held against its plain version, the
    28-layer logits within their measured floor, attention launches 28 per
    call;
-11. wkv6: the WKV6 kernel pair against its plain version (the chunked form)
+13. wkv6: the WKV6 kernel pair against its plain version (the chunked form)
    on the card, float32 at the reference test's shapes (ragged T, w = 1e-6),
    bf16 r, k, v with a non-zero initial state at the rwkv6-3b long-prompt
    batch, one 2048-token and one 32768-token sequence, elementwise and row
@@ -73,8 +92,8 @@ Phases, one or more printed lines each, in run order:
    that the check rejects an ignored initial state, a dropped bonus
    diagonal and a lost chunk state update; its time, the plain version's
    and the bound with both its terms;
-12. rwkv: the rwkv6-3b serving and scoring path at full width (32 layers):
-   the same serving steps as phase 9, decode-vs-forward logits across
+14. rwkv: the rwkv6-3b serving and scoring path at full width (32 layers):
+   the same serving steps as phase 11, decode-vs-forward logits across
    chunks, each layer's wkv6 call held against its plain version, the
    32-layer logits against the path with the plain version within a
    measured floor, 2048-token scoring, wkv6 launches equal to 32 per
@@ -90,6 +109,7 @@ outside the repository.  Nothing here imports JAX or the reference package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -326,6 +346,30 @@ def live_pairs(ok, ov):
     return ok[live], ov[live]
 
 
+def timed_job(job, corpus):
+    """(output, wall s) of a warm call of ``job``, fenced."""
+    job(corpus)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = job(corpus)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_results(tag: str, got: dict, want: dict, dropped: int, name: str) -> str:
+    """Results against numpy's count: equal when nothing dropped, else (for
+    WordCount, whose values are 1 a pair) the dropped pairs account for
+    the difference."""
+    if dropped == 0:
+        if got != want:
+            raise AssertionError(f"{tag}: results differ from numpy count")
+        return "== numpy count"
+    if name != "wordcount" or sum(got.values()) + dropped != sum(want.values()) \
+            or any(v > want.get(k, 0) for k, v in got.items()):
+        raise AssertionError(f"{tag}: {dropped} dropped pairs unaccounted")
+    return "+ dropped == numpy count"
+
+
 def phase_engine(apps: dict, expect: dict) -> int:
     """Full-size jobs, "cuda" against "torch"; returns the segment_reduce
     launches the "cuda" jobs must have made."""
@@ -352,18 +396,11 @@ def phase_engine(apps: dict, expect: dict) -> int:
             if not all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["torch"])):
                 raise AssertionError(f"{name} {(M, R, W)}: cuda and torch outputs differ")
             ok, ov, dropped = outs["cuda"]
-            got, want, dropped = collect_results(*live_pairs(ok, ov)), expect[(name, M)], int(dropped)
-            if dropped == 0:
-                if got != want:
-                    raise AssertionError(f"{name} {(M, R, W)}: results differ from numpy count")
-                check = "== numpy count"
-            else:
-                # Zipf skew overflows a partition at large R; the loss must be
-                # counted.  WordCount values are 1 per pair, so pairs conserve.
-                if name != "wordcount" or sum(got.values()) + dropped != sum(want.values()) \
-                        or any(v > want.get(k, 0) for k, v in got.items()):
-                    raise AssertionError(f"{name} {(M, R, W)}: {dropped} dropped pairs unaccounted")
-                check = "+ dropped == numpy count"
+            # Zipf skew overflows a partition at large R; the loss must be
+            # counted.
+            dropped = int(dropped)
+            check = check_results(f"{name} {(M, R, W)}", collect_results(*live_pairs(ok, ov)),
+                                  expect[(name, M)], dropped, name)
             log("engine", f"{name} M={M} R={R} W={W} partitions {tuple(ok.shape)}: "
                 f"cuda == torch bit for bit, results {check}, dropped {dropped}; "
                 f"job {times['cuda'] * 1e3:.1f} ms (cuda), {times['torch'] * 1e3:.1f} ms (torch)")
@@ -554,19 +591,10 @@ def phase_pipelined(apps: dict) -> dict:
     from repro_torch.telemetry import PhaseRecorder
 
     want = {"segment_reduce": 0, "local_reduce": 0}
-
-    def timed(job, corpus):
-        job(corpus)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = job(corpus)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     for name, app, corpus, cfg in mapreduce_jobs(apps):
         M, R, W = cfg.num_mappers, cfg.num_reducers, cfg.num_workers
         plan = ExecutionPlan(app, cfg, len(corpus), device="cuda")
-        fused, t_fused = timed(plan.fused(), corpus)
+        fused, t_fused = timed_job(plan.fused(), corpus)
         want["segment_reduce"] += 2 * cfg.reduce_waves
         want["local_reduce"] += 2 * int(cfg.combiner)
         walls = []
@@ -575,7 +603,7 @@ def phase_pipelined(apps: dict) -> dict:
             job(corpus)
             torch.cuda.synchronize()
             before = segment_reduce.launches, local_reduce.launches
-            got, wall = timed(job, corpus)
+            got, wall = timed_job(job, corpus)
             groups = math.ceil(R / min(W * depth, R))
             made = (segment_reduce.launches - before[0], local_reduce.launches - before[1])
             want["segment_reduce"] += 3 * groups
@@ -601,6 +629,201 @@ def phase_pipelined(apps: dict) -> dict:
             f"depths 1-3 == fused bit for bit; job wall fused {t_fused * 1e3:.2f} ms, "
             + ", ".join(walls) + f"; traced D=2 conserves, pipeline phase "
             f"{trace.phase('pipeline').wall_s * 1e3:.3f} ms of {trace.total_s * 1e3:.2f} ms")
+    return want
+
+
+@contextlib.contextmanager
+def nccl_world1():
+    """An NCCL process group of one rank on card 0 (NCCL puts no two ranks
+    on one card), initialised through a file; destroyed on exit."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            yield dist.group.WORLD
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_a2a(apps: dict, expect: dict) -> dict:
+    """The all-to-all shuffle at full size.  Both applications at
+    ENGINE_CONFIGS with shuffle "all_to_all", backend "cuda": the emulated
+    fused job == numpy's count when nothing dropped, traced and pipelined
+    (D = 2) bit-equal to it and conserving, WordCount's combiner run equal
+    to the run without it; then the sharded mode on an NCCL group of one
+    rank at (20, 5, 1), bit-equal to the emulated mode at W = 1, with its
+    per-worker overflow stats.  Walls beside the lexsort fused job's, and
+    the shuffle's from the traced phases, are information only.  Returns
+    the launches its jobs must have made."""
+    from repro_torch.mapreduce import ExecutionPlan, JobConfig, collect_results
+    from repro_torch.telemetry import PhaseRecorder
+
+    want = {"segment_reduce": 0, "local_reduce": 0}
+
+    def count(cfg, jobs, groups=None):
+        want["segment_reduce"] += jobs * (cfg.reduce_waves if groups is None else groups)
+        want["local_reduce"] += jobs * int(cfg.combiner)
+
+    with nccl_world1() as group:
+        for name, (app, corpus) in apps.items():
+            for M, R, W in ENGINE_CONFIGS:
+                walls, shuffles, outs = {}, {}, {}
+                for sb in ("lexsort", "all_to_all"):
+                    cfg = JobConfig(M, R, W, reduce_backend="cuda", shuffle_backend=sb)
+                    plan = ExecutionPlan(app, cfg, len(corpus), device="cuda")
+                    outs[sb], walls[sb] = timed_job(plan.fused(), corpus)
+                    recorder = PhaseRecorder()
+                    traced = plan.traced(recorder)(corpus)
+                    count(cfg, 3)
+                    shuffles[sb] = recorder.last.phase("shuffle").wall_s
+                    if not all(torch.equal(a, b) for a, b in zip(traced, outs[sb])) \
+                            or recorder.last.check_conservation():
+                        raise AssertionError(f"a2a {sb} {name} {(M, R, W)}: traced differs "
+                                             f"or {recorder.last.check_conservation()}")
+                ok, ov, dropped = outs["all_to_all"]
+                tag = f"a2a {name} {(M, R, W)}"
+                check = check_results(tag, collect_results(*live_pairs(ok, ov)),
+                                      expect[(name, M)], int(dropped), name)
+                piped = plan.pipelined(depth=2)(corpus)
+                count(cfg, 1, math.ceil(R / min(2 * W, R)))
+                if not all(torch.equal(a, b) for a, b in zip(piped, outs["all_to_all"])):
+                    raise AssertionError(f"{tag}: pipelined D=2 differs from fused")
+                line = (f"{name} M={M} R={R} W={W} partitions {tuple(ok.shape)}: fused "
+                        f"{check}, dropped {int(dropped)}, traced and pipelined D=2 bit-equal, "
+                        f"traced conserves; job wall {walls['all_to_all'] * 1e3:.2f} ms "
+                        f"(lexsort {walls['lexsort'] * 1e3:.2f} ms), traced shuffle "
+                        f"{shuffles['all_to_all'] * 1e3:.2f} ms (lexsort "
+                        f"{shuffles['lexsort'] * 1e3:.2f} ms)")
+                if name == "wordcount":
+                    ccfg = dataclasses.replace(cfg, combiner=True)
+                    cplan = ExecutionPlan(app, ccfg, len(corpus), device="cuda")
+                    combined, cwall = timed_job(cplan.fused(), corpus)
+                    count(ccfg, 2)
+                    got = collect_results(*live_pairs(*combined[:2]))
+                    ccheck = check_results(tag + " combiner", got, expect[(name, M)],
+                                           int(combined[2]), name)
+                    if int(dropped) == 0 and got != collect_results(*live_pairs(ok, ov)):
+                        raise AssertionError(f"{tag}: combiner on differs from combiner off")
+                    line += (f"; combiner {ccheck}" + (", == off" if int(dropped) == 0 else "")
+                             + f", dropped {int(combined[2])}, job wall {cwall * 1e3:.2f} ms")
+                log("a2a", line)
+                if (M, R, W) == ENGINE_CONFIGS[0]:
+                    for combiner in (False, True) if name == "wordcount" else (False,):
+                        scfg = dataclasses.replace(cfg, combiner=combiner)
+                        splan = ExecutionPlan(app, scfg, len(corpus), device="cuda")
+                        emulated = outs["all_to_all"] if not combiner else combined
+                        (sok, sov, sdropped, stats), swall = timed_job(
+                            splan.sharded(group, counters=True), corpus)
+                        count(scfg, 2, R)  # one backend call a reduce slot: R at W = 1
+                        if not all(torch.equal(x, y) for x, y in
+                                   zip((sok, sov, sdropped), emulated)) or \
+                                stats["dropped_send"] + stats["dropped_recv"] != int(sdropped):
+                            raise AssertionError(f"sharded {name} combiner={combiner}: "
+                                                 f"differs from emulated, stats {stats}")
+                        log("a2a", f"sharded {name} M={M} R={R} W=1"
+                            f"{' combiner' if combiner else ''} on NCCL world size 1: == "
+                            f"emulated bit for bit, stats send {stats['dropped_send']} recv "
+                            f"{stats['dropped_recv']} per worker "
+                            f"{stats['dropped_per_worker'].tolist()}; job wall "
+                            f"{swall * 1e3:.2f} ms")
+                        del sok, sov
+                del outs, ok, ov, piped
+    log("a2a", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return want
+
+
+def phase_elastic(apps: dict) -> dict:
+    """Resumable jobs at full size: WordCount and Exim at (M, R) = (20, 5),
+    backend "cuda", and WordCount with its combiner.  Under the grant
+    schedule 1 -> 4 -> 2 (regrant after the first map wave and after the
+    shuffle): lexsort bit-equal to fused, all_to_all's collected results
+    equal to fused's.  Then lexsort snapshots through CheckpointManager at
+    three boundaries (mid-map, right after the shuffle, mid-reduce), each
+    restored into a fresh ResumableJob and resumed: bit-equal to fused.
+    Snapshot bytes, save and restore walls are printed.  Returns the
+    launches its jobs must have made: one segment_reduce a reduce step,
+    one local_reduce a combine step."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.elastic import ResumableJob, load_snapshot, run_resumable, save_snapshot
+    from repro_torch.mapreduce import ExecutionPlan, JobConfig, collect_results
+
+    want = {"segment_reduce": 0, "local_reduce": 0}
+    M, R = ENGINE_CONFIGS[0][:2]
+
+    def run(job, corpus, state=None, preempt_after=None):
+        """run_resumable, counting the reduce and combine steps it ran."""
+        b = (state or job.initial_state()).cursor
+        out = run_resumable(job, corpus, state=state, preempt_after=preempt_after)
+        a = out.cursor
+        combines = int(a.combined and not b.combined)
+        steps = a.waves_executed - b.waves_executed
+        map_steps = math.ceil((a.map_tasks_done - b.map_tasks_done) / b.workers)
+        want["segment_reduce"] += steps - map_steps - combines - int(a.shuffled > b.shuffled)
+        want["local_reduce"] += combines
+        return out
+
+    jobs = [("wordcount", False), ("eximparse", False), ("wordcount", True)]
+    for name, combiner in jobs:
+        app, corpus = apps[name]
+        for sb in ("lexsort", "all_to_all"):
+            cfg = JobConfig(M, R, 1, reduce_backend="cuda", shuffle_backend=sb,
+                            combiner=combiner)
+            plan = ExecutionPlan(app, cfg, len(corpus), device="cuda")
+            fused = plan.fused()(corpus)
+            want["segment_reduce"] += cfg.reduce_waves
+            want["local_reduce"] += int(combiner)
+            job = plan.resumable()
+            t0 = time.perf_counter()
+            state = run(job, corpus, preempt_after=1)                # map wave 1 at W = 1
+            state = run(job, corpus, state=job.regrant(state, 4),     # the map at W = 4,
+                        preempt_after=math.ceil((M - 1) / 4) + int(combiner) + 1)  # the shuffle
+            state = run(job, corpus, state=job.regrant(state, 2))    # the reduce at W = 2
+            wall = time.perf_counter() - t0
+            got = job.result(state)
+            tag = f"elastic {name}{' combiner' if combiner else ''} {sb}"
+            if sb == "lexsort":
+                if not all(torch.equal(a, b) for a, b in zip(got, fused)):
+                    raise AssertionError(f"{tag}: grants 1 -> 4 -> 2 differ from fused")
+                check = "bit-equal to fused"
+            else:
+                if collect_results(*live_pairs(*got[:2])) != \
+                        collect_results(*live_pairs(*fused[:2])) or int(got[2]) != int(fused[2]):
+                    raise AssertionError(f"{tag}: grants 1 -> 4 -> 2 results differ from fused")
+                check = f"results == fused's, partitions {tuple(fused[0].shape)} -> " \
+                        f"{tuple(got[0].shape)}"
+            log("elastic", f"{tag}: grants 1 -> 4 -> 2, {state.cursor.waves_executed} steps "
+                f"in {wall * 1e3:.1f} ms, {check}")
+            del got, state
+            if sb != "lexsort":
+                continue
+            shuffled_at = M + int(combiner) + 1
+            for where, k in (("mid-map", M // 2), ("after the shuffle", shuffled_at),
+                             ("mid-reduce", shuffled_at + 2)):
+                with tempfile.TemporaryDirectory() as tmp:
+                    state = run(job, corpus, preempt_after=k)
+                    mgr = CheckpointManager(tmp, keep=1)
+                    step, save_s = save_snapshot(mgr, state)
+                    nbytes = sum(f.stat().st_size for f in Path(tmp).glob("step_*/arr_*.npy"))
+                    del state
+                    restored, _, restore_s = load_snapshot(mgr, step, device="cuda")
+                    fresh = ResumableJob(app, cfg, len(corpus), device="cuda")
+                    done = run(fresh, corpus, state=restored)
+                    if not all(torch.equal(a, b) for a, b in zip(fresh.result(done), fused)):
+                        raise AssertionError(f"{tag}: resumed from {where} differs from fused")
+                    log("elastic", f"{tag} snapshot {where} (step {step}, "
+                        f"{', '.join(sorted(restored.arrays))}): {nbytes} bytes, save "
+                        f"{save_s * 1e3:.1f} ms, restore {restore_s * 1e3:.1f} ms; "
+                        f"resumed == fused bit for bit")
+                    del restored, done
+        del fused
     return want
 
 
@@ -1738,18 +1961,23 @@ def main() -> int:
         f"(one per reduce wave), local_reduce {launches['local_reduce']} (one per combiner job)")
     phase_breakdown(apps)
 
-    # The traced and pipelined modes, each path counted from zero.
+    # The traced and pipelined modes, the all-to-all shuffle and the
+    # resumable jobs, each path counted from zero.
     for path, drive in (("traced", lambda: phase_traced(apps, expect, pairs)),
-                        ("pipelined", lambda: phase_pipelined(apps))):
+                        ("pipelined", lambda: phase_pipelined(apps)),
+                        ("a2a", lambda: phase_a2a(apps, expect)),
+                        ("elastic", lambda: phase_elastic(apps))):
         segment_reduce.launches = 0
         local_reduce.launches = 0
+        t_path = time.perf_counter()
         want = drive()
         made = {"segment_reduce": segment_reduce.launches,
                 "local_reduce": local_reduce.launches}
         if made != want:
             raise AssertionError(f"{path} path launches {made}, want {want}")
         log("launches", f"{path} path: segment_reduce {made['segment_reduce']}, local_reduce "
-            f"{made['local_reduce']} (as its jobs' reduce waves or groups and combiners)")
+            f"{made['local_reduce']} (as its jobs' reduce waves, groups, slots or steps and "
+            f"combiners), {time.perf_counter() - t_path:.1f} s")
         for name, n in made.items():
             launches[name] += n
     del apps

@@ -1,6 +1,7 @@
 """State that crosses between the reference package and the port.
 
-What crosses is configuration, data, fitted models and LM weights.
+What crosses is configuration, data, fitted models, LM weights and
+elastic job snapshots.
 
 * :func:`job_config_from_reference` — a reference ``JobConfig`` (as
   ``dataclasses.asdict``) becomes the port's, with the reduce backend
@@ -12,13 +13,19 @@ What crosses is configuration, data, fitted models and LM weights.
   (the format is shared);
 * :func:`lm_params_from_reference` — the reference LM's ``init_params``
   pytree, as numpy arrays, becomes the state dict of the port's
-  ``models.transformer.Transformer``.
+  ``models.transformer.Transformer``;
+* :func:`snapshot_from_reference` / :func:`snapshot_to_reference` — an
+  elastic snapshot tree (``CheckpointManager.restore(step)`` of either
+  package) with its cursor's reduce backend renamed, so a job preempted in
+  one package resumes in the other.  The arrays cross unchanged.
 
 Corpora cross through their seed: ``mapreduce.datagen`` draws the same
 RNG sequence as the reference.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
@@ -33,6 +40,8 @@ __all__ = [
     "job_config_from_reference",
     "lm_params_from_reference",
     "regression_model_from_reference",
+    "snapshot_from_reference",
+    "snapshot_to_reference",
 ]
 
 #: reference reduce backend name -> the port's backend of the same role
@@ -97,3 +106,28 @@ def lm_params_from_reference(tree: dict) -> dict:
             for rep in range(n_rep):
                 state[f"blocks.{rep * P + p}.{name}"] = tensor(stacked[rep])
     return state
+
+
+def _rename_cursor_backend(tree: dict, names: dict) -> dict:
+    cursor = json.loads(str(np.asarray(tree["cursor"])[()]))
+    name = cursor["reduce_backend"]
+    if name not in names:
+        raise ValueError(
+            f"unknown reduce backend {name!r} in snapshot cursor; "
+            f"known: {sorted(names)}"
+        )
+    cursor["reduce_backend"] = names[name]
+    return {"cursor": np.asarray(json.dumps(cursor, sort_keys=True)),
+            "arrays": dict(tree["arrays"])}
+
+
+def snapshot_from_reference(tree: dict) -> dict:
+    """A reference snapshot tree, ready for the port's ``tree_to_state``."""
+    return _rename_cursor_backend(tree, REFERENCE_BACKEND_NAMES)
+
+
+def snapshot_to_reference(tree: dict) -> dict:
+    """A port snapshot tree, ready for the reference's ``tree_to_state``."""
+    return _rename_cursor_backend(
+        tree, {v: k for k, v in REFERENCE_BACKEND_NAMES.items()}
+    )

@@ -3,9 +3,9 @@ the execution plan and its modes, and the paper's two applications.
 
     phases.py   — the shared implementation of each phase
     backends.py — swappable shuffle/reduce strategies + registries
-    plan.py     — ExecutionPlan: per-grant wave steppers; fused, pipelined
-                  and traced modes
-    engine.py   — JobConfig/MapReduceApp + build_job
+    plan.py     — ExecutionPlan: per-grant wave steppers; fused, pipelined,
+                  traced, sharded and resumable modes
+    engine.py   — JobConfig/MapReduceApp + build_job / build_job_sharded
     apps.py     — WordCount and Exim mainlog parsing
     datagen.py  — synthetic corpora (same RNG draws as the reference)
 """
@@ -15,6 +15,7 @@ from repro_torch.mapreduce.engine import (
     MapReduceApp,
     PAD_KEY,
     build_job,
+    build_job_sharded,
     collect_results,
 )
 from repro_torch.mapreduce.plan import ExecutionPlan
@@ -37,6 +38,7 @@ __all__ = [
     "MapReduceApp",
     "PAD_KEY",
     "build_job",
+    "build_job_sharded",
     "collect_results",
     "REDUCE_BACKENDS",
     "SHUFFLE_BACKENDS",

@@ -12,8 +12,13 @@ execution backend is a categorical tuning axis with three arms:
   They accumulate in int32, so unlike the Pallas kernel (exact below
   2**24 only) they equal ``torch`` / the reference's ``jnp`` at every size.
 
-Shuffle backends: ``lexsort`` (global sort by (reducer, key) +
-capacity-bounded scatter).  ``all_to_all`` is ported by a later slice.
+Shuffle backends:
+
+* ``lexsort``    — single-controller global sort by (reducer, key) +
+  capacity-bounded scatter;
+* ``all_to_all`` — per-worker partition by destination + an all-to-all
+  exchange: ``torch.distributed.all_to_all_single`` in the plan's sharded
+  mode, the block transpose it implements in the emulated modes.
 """
 
 from __future__ import annotations
@@ -128,17 +133,41 @@ class CudaReduceBackend(ReduceBackend):
 class ShuffleBackend:
     """Routes map-output pairs into per-reduce-task partitions.
 
-    ``partition`` sees the job's full flat pair stream and returns global
-    (R_pad, cap) partitions plus a ``dropped`` overflow count.
-    ``collective`` marks a backend whose layout depends on the grant W (the
-    reference's ``all_to_all``); the lexsort barrier is W-independent.
+    Two families share this interface:
+
+    * non-collective (``collective = False``): :meth:`partition` sees the
+      job's full flat pair stream and returns global (R_pad, cap)
+      partitions;
+    * collective (``collective = True``): :meth:`exchange` runs on one
+      worker's local pairs inside a process group and returns the
+      (slots, cap) reduce buckets the worker owns after the exchange.
+
+    Both return a ``dropped`` count for capacity-overflow accounting.
     """
 
     name: str = "abstract"
     collective: bool = False
 
     def partition(self, cfg, keys, values, pvalid):
-        raise NotImplementedError
+        raise NotImplementedError(f"{self.name} is not a global shuffle")
+
+    def exchange(self, cfg, group, keys, values, pvalid):
+        raise NotImplementedError(f"{self.name} is not a collective shuffle")
+
+    def capacity_for(self, cfg, n_pairs: int) -> int:
+        """Per-partition slot capacity for a job with ``n_pairs`` map-output
+        pairs; the telemetry layer sizes its counters from it."""
+        return phases.partition_capacity(
+            n_pairs, cfg.num_reducers, cfg.capacity_factor
+        )
+
+
+def _stable_order(primary, keys):
+    """``jnp.lexsort((keys, primary))`` along the last axis: one stable sort
+    of the packed int64 (primary, key + 2**31); equal keys keep their input
+    order, which is the order their values reach the reduce buckets."""
+    packed = (primary.to(torch.int64) << 32) | (keys.to(torch.int64) + 2**31)
+    return torch.sort(packed, dim=-1, stable=True).indices
 
 
 class LexsortShuffle(ShuffleBackend):
@@ -153,10 +182,7 @@ class LexsortShuffle(ShuffleBackend):
         n = keys.shape[0]
         rid = hash_to_reducer(keys, R)
         rid = torch.where(pvalid, rid, R)  # invalid pairs -> OOB dump row
-        # jnp.lexsort((keys, rid)): reducer first, then key, stable.  One
-        # stable sort of the packed int64 (rid, key + 2**31) is the same order.
-        packed = (rid.to(torch.int64) << 32) | (keys.to(torch.int64) + 2**31)
-        _, order = torch.sort(packed, stable=True)
+        order = _stable_order(rid, keys)  # reducer first, then key
         skeys, svals, srid = keys[order], values[order], rid[order]
         cap = phases.partition_capacity(n, R, cfg.capacity_factor)
         R_pad = cfg.reduce_waves * W
@@ -166,12 +192,102 @@ class LexsortShuffle(ShuffleBackend):
         return part_keys, part_vals, dropped
 
 
+class AllToAllShuffle(ShuffleBackend):
+    """Per-worker partition by destination + all-to-all exchange.
+
+    Reducer r lives on worker r % W; after the exchange each worker buckets
+    its received pairs into the ``reduce_waves`` reduce slots it owns
+    (local slot r // W).  The worker-local halves :meth:`pack` (before the
+    exchange) and :meth:`unpack` (after it) take a leading worker axis, so
+    the emulated modes run every worker in one call and put the block
+    transpose the collective implements between them; :meth:`exchange`
+    runs one worker's halves around ``all_to_all_single``.
+    """
+
+    name = "all_to_all"
+    collective = True
+
+    def pack(self, cfg, keys, values, pvalid):
+        """Pre-exchange half: partition each worker's (B, n_local) pairs by
+        destination worker.  Returns ((send_k, send_v, send_r), dropped)
+        with (B, W, shuf_cap) send buffers, row i of a worker's going to
+        worker i, and the (B,) counts lost to send-buffer overflow."""
+        R, W = cfg.num_reducers, cfg.num_workers
+        n_local = keys.shape[-1]
+        # Per (src, dst) capacity: uniform share x safety factor.
+        shuf_cap = phases.partition_capacity(n_local, W, cfg.capacity_factor)
+        rid = torch.where(pvalid, hash_to_reducer(keys, R), R)
+        dst = torch.where(pvalid, rid % W, W)
+        # Destination, then reducer, then key: dst = rid % W for live pairs
+        # and (W, R) for dead ones, so dst * (R + 1) + rid orders both.
+        order = _stable_order(dst.to(torch.int64) * (R + 1) + rid, keys)
+        k, v, rid, dst = (a.gather(-1, order) for a in (keys, values, rid, dst))
+        (send_k, send_v, send_r), send_dropped = bucket_scatter(
+            dst, W, W, shuf_cap, (k, v, rid), (PAD_KEY, 0, R)
+        )
+        return (send_k, send_v, send_r), send_dropped
+
+    def unpack(self, cfg, n_local, rk, rv, rr):
+        """Post-exchange half: bucket each worker's received (B, n_recv)
+        pairs into its reduce slots (local slot rid // W).  ``n_local`` is
+        the per-worker map-output pair count, which sizes the bucket
+        capacity alike on every worker.  Returns ((bk, bv), dropped) with
+        (B, reduce_waves, red_cap) buckets and (B,) overflow counts."""
+        R, W, waves_r = cfg.num_reducers, cfg.num_workers, cfg.reduce_waves
+        red_cap = phases.partition_capacity(W * n_local, R, cfg.capacity_factor)
+        lslot = torch.where(rr < R, rr // W, waves_r)
+        order = _stable_order(lslot, rk)
+        rk, rv, lslot = (a.gather(-1, order) for a in (rk, rv, lslot))
+        (bk, bv), recv_dropped = bucket_scatter(
+            lslot, waves_r, waves_r, red_cap, (rk, rv), (PAD_KEY, 0)
+        )
+        return (bk, bv), recv_dropped
+
+    @staticmethod
+    def live_width(cfg, send_r, group=None) -> int:
+        """The longest live prefix of any (src, dst) send block, across
+        ``group``'s ranks when given.  :meth:`pack` front-packs each block
+        (its dead slots carry reducer id R), so cutting every block there
+        changes no bucket and no count, and spares the exchange and the
+        unpack's sort the dead tail: at capacity factor 4 and W = 4 about
+        three quarters of the slots.  One host read (and one all-reduce)."""
+        import torch.distributed as dist
+
+        width = (send_r < cfg.num_reducers).sum(-1).max()
+        if group is not None:
+            dist.all_reduce(width, op=dist.ReduceOp.MAX, group=group)
+        return max(1, int(width))
+
+    def exchange(self, cfg, group, keys, values, pvalid):
+        """One worker's flat (n_local,) pairs through the exchange on
+        ``group`` (``cfg.num_workers`` ranks, this one among them).
+
+        Keys, values and reducer ids travel as one packed (W, 3, width)
+        int32 tensor in a single ``all_to_all_single``, ``width`` the
+        blocks' longest live prefix (:meth:`live_width`): row i goes to
+        rank i, and the received rows stack in source order.  Returns
+        (bucket_keys, bucket_vals, dropped) with (reduce_waves, red_cap)
+        buckets and ``dropped`` the (2,) ``[send, recv]`` overflow counts.
+        """
+        import torch.distributed as dist
+
+        n_local = keys.shape[0]
+        (send_k, send_v, send_r), send_dropped = self.pack(
+            cfg, keys[None], values[None], pvalid[None]
+        )
+        width = self.live_width(cfg, send_r, group)
+        send = torch.stack([s[0, :, :width] for s in (send_k, send_v, send_r)], dim=1)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        (bk, bv), recv_dropped = self.unpack(
+            cfg, n_local,
+            *(recv[:, i].reshape(1, -1) for i in range(3)),
+        )
+        return bk[0], bv[0], torch.cat([send_dropped, recv_dropped])
+
+
 REDUCE_BACKENDS: dict[str, ReduceBackend] = {}
 SHUFFLE_BACKENDS: dict[str, ShuffleBackend] = {}
-
-#: shuffle backends of the reference that a later slice of the port brings
-#: over (ROADMAP.md, queue 1): a config may name them, ``build_job`` refuses.
-UNPORTED_SHUFFLE_BACKENDS = {"all_to_all": "queue 1, item 6 (all-to-all shuffle)"}
 
 
 def register_reduce_backend(backend: ReduceBackend) -> ReduceBackend:
@@ -190,6 +306,7 @@ register_reduce_backend(TorchReduceBackend())
 register_reduce_backend(CudaReduceBackend())
 register_reduce_backend(ScatterReduceBackend())
 register_shuffle_backend(LexsortShuffle())
+register_shuffle_backend(AllToAllShuffle())
 
 
 def get_reduce_backend(name: str) -> ReduceBackend:

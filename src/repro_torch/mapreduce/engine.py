@@ -10,8 +10,9 @@ depend on (M, R) the way the paper models.
 
 ``build_job`` runs the plan's fused mode, its traced mode when given a
 telemetry recorder, and its pipelined mode at ``overlap_depth > 1``, as
-the reference's does.  It refuses the all-to-all shuffle, which a later
-slice brings (ROADMAP.md queue 1, item 6).
+the reference's does.  A collective shuffle (``all_to_all``) needs a
+``torch.distributed`` process group, the reference's mesh, and runs the
+plan's sharded mode (:func:`build_job_sharded`).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ class JobConfig:
     setup_rounds: int = 4       # per-task startup overhead (matmul rounds)
     setup_dim: int = 32         # startup compute size
     reduce_backend: str = "torch"   # "torch" | "scatter_reduce" | "cuda"
-    shuffle_backend: str = "lexsort"  # "lexsort" ("all_to_all": later slice)
+    shuffle_backend: str = "lexsort"  # "lexsort" | "all_to_all"
     overlap_depth: int = 1          # software-pipeline depth (1 = serial)
 
     def __post_init__(self):
@@ -52,8 +53,7 @@ class JobConfig:
                 f"overlap_depth must be >= 1, got {self.overlap_depth}"
             )
         _backends.get_reduce_backend(self.reduce_backend)
-        if self.shuffle_backend not in _backends.UNPORTED_SHUFFLE_BACKENDS:
-            _backends.get_shuffle_backend(self.shuffle_backend)
+        _backends.get_shuffle_backend(self.shuffle_backend)
 
     @property
     def map_waves(self) -> int:
@@ -80,11 +80,17 @@ class MapReduceApp:
 
 
 def build_job(app: MapReduceApp, cfg: JobConfig, input_len: int, *,
-              recorder=None, device="cuda"):
+              group=None, recorder=None, device="cuda"):
     """Lower a full MapReduce job for one (app, config, input size).
 
     Returns ``job(tokens (input_len,) int32) -> (out_keys (R, C),
     out_vals (R, C), dropped ())``, all on ``device``.
+
+    ``cfg.shuffle_backend`` selects the execution strategy: a collective
+    backend (``"all_to_all"``) needs ``group``, a ``torch.distributed``
+    process group of ``cfg.num_workers`` ranks, and routes through
+    :func:`build_job_sharded`; the default ``"lexsort"`` runs the
+    single-controller pipeline.
 
     ``recorder`` (optional) turns on per-phase telemetry: any object with
     the :class:`repro_torch.telemetry.PhaseRecorder` protocol
@@ -94,11 +100,21 @@ def build_job(app: MapReduceApp, cfg: JobConfig, input_len: int, *,
     appends one trace.  Without one, ``cfg.overlap_depth > 1`` runs the
     pipelined mode and depth 1 the fused mode, which costs nothing extra.
     """
-    if cfg.shuffle_backend in _backends.UNPORTED_SHUFFLE_BACKENDS:
-        raise NotImplementedError(
-            f"shuffle backend {cfg.shuffle_backend!r} is ported by a later "
-            f"slice (ROADMAP.md "
-            f"{_backends.UNPORTED_SHUFFLE_BACKENDS[cfg.shuffle_backend]})"
+    shuffle = _backends.get_shuffle_backend(cfg.shuffle_backend)
+    if shuffle.collective:
+        if group is None:
+            raise ValueError(
+                f"shuffle backend {shuffle.name!r} is a collective; pass "
+                "group= (a torch.distributed process group) or call "
+                "build_job_sharded"
+            )
+        return build_job_sharded(app, cfg, input_len, group,
+                                 recorder=recorder, device=device)
+    if group is not None:
+        raise ValueError(
+            f"group given but shuffle backend {shuffle.name!r} is "
+            "single-controller; use shuffle_backend=\"all_to_all\" for a "
+            "distributed job"
         )
     plan = ExecutionPlan(app, cfg, input_len, device=device)
     if recorder is not None:
@@ -106,6 +122,31 @@ def build_job(app: MapReduceApp, cfg: JobConfig, input_len: int, *,
     if cfg.overlap_depth > 1:
         return plan.pipelined()
     return plan.fused()
+
+
+def build_job_sharded(app: MapReduceApp, cfg: JobConfig, input_len: int,
+                      group, counters: bool = False, recorder=None,
+                      device="cuda"):
+    """The job on a ``torch.distributed`` process group: this rank is one
+    of W = ``group.size()`` workers and the shuffle is
+    ``all_to_all_single`` (:meth:`ExecutionPlan.sharded`; ``group=None``
+    is the default world group).  Every rank returns the whole
+    reducer-major output.
+
+    With ``counters=True`` the job yields ``(out_keys, out_vals, dropped,
+    stats)``, ``stats`` reducing the per-worker overflow counters::
+
+        stats = {
+            "dropped_send": int,   # shuffle send-buffer overflow, all workers
+            "dropped_recv": int,   # reduce-bucket overflow, all workers
+            "dropped_per_worker": (W, 2) ndarray,  # [send, recv] per worker
+        }
+
+    With ``recorder=`` the phases are fenced and every call appends a
+    per-phase :class:`~repro_torch.telemetry.JobTrace`.
+    """
+    plan = ExecutionPlan(app, cfg, input_len, device=device)
+    return plan.sharded(group, counters=counters, recorder=recorder)
 
 
 def collect_results(out_keys, out_vals) -> dict[int, int]:

@@ -4,9 +4,11 @@
 * :func:`hash_to_reducer`    — Knuth multiplicative key hashing in uint32;
 * :func:`segment_sum_sorted` — sorted equal-key aggregation (sum/max/first);
 * :func:`run_map_task`       — setup + ``map_fn`` + local spill sort;
+* :func:`map_phase`          — map tasks over a (waves, W) task grid;
 * :func:`combine_rows`       — map-side combine of spill-sorted task rows;
 * :func:`bucket_scatter`     — capacity-bounded partition scatter that
-  counts its overflow in ``dropped``.
+  counts its overflow in ``dropped``;
+* :func:`reduce_local`       — one worker's reduce slots, one at a time.
 
 Every function works on a batch of tasks written out as the leading
 dimension, where the reference ``vmap``s a one-task function.  Values are
@@ -132,6 +134,16 @@ def run_map_task(app, cfg, tokens, valid):
     return keys, values, pvalid
 
 
+def map_phase(app, cfg, splits, split_valid):
+    """Map tasks in waves of W workers, one wave after another.
+
+    splits/split_valid: (waves, W, S).  Returns keys/values/valid of shape
+    (waves, W, P).
+    """
+    outs = [run_map_task(app, cfg, t, m) for t, m in zip(splits, split_valid)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
 def partition_capacity(n_pairs: int, n_buckets: int, factor: float) -> int:
     """Capacity per partition: uniform share x safety factor, clamped."""
     cap = max(1, int(math.ceil(n_pairs / max(n_buckets, 1) * factor)))
@@ -162,30 +174,39 @@ def combine_rows(backend, keys, values, pvalid, reduce_op: str, cap: int):
 def bucket_scatter(ids, n_buckets, n_rows, cap, arrays, fills):
     """Capacity-bounded scatter into fixed (n_rows, cap) partitions.
 
-    ids: (n,) integer, **sorted ascending**; ids >= n_buckets mark invalid
-    entries.  Each of the parallel (n,) ``arrays`` is scattered to
-    ``out[id, position-within-bucket]`` over a buffer filled with its
-    ``fills`` entry.  Returns (list of (n_rows, cap) tensors, dropped),
+    ids: (n,) integer, **sorted ascending**, or (B, n) with each row sorted
+    (B independent scatters, as the reference ``vmap``s one); ids >=
+    n_buckets mark invalid entries.  Each of the parallel ``arrays`` is
+    scattered to ``out[id, position-within-bucket]`` over a buffer filled
+    with its ``fills`` entry.  Returns (list of (n_rows, cap) tensors,
+    dropped), or (B, n_rows, cap) tensors and a (B,) ``dropped``,
     ``dropped`` counting valid entries lost to capacity overflow.
     """
+    if ids.dim() == 1:
+        outs, dropped = bucket_scatter(
+            ids[None], n_buckets, n_rows, cap, [a[None] for a in arrays], fills
+        )
+        return [o[0] for o in outs], dropped[0]
     dev = ids.device
-    n = ids.shape[0]
+    B, n = ids.shape
     ids = ids.to(torch.int64)
     start = torch.searchsorted(
-        ids, torch.arange(n_buckets + 1, device=dev), side="left"
+        ids, torch.arange(n_buckets + 1, device=dev).expand(B, -1).contiguous(),
+        side="left",
     )
-    pos = torch.arange(n, device=dev) - start[ids.clamp(0, n_buckets)]
+    pos = torch.arange(n, device=dev) - start.gather(1, ids.clamp(0, n_buckets))
     valid = ids < n_buckets
-    dropped = ((pos >= cap) & valid).sum().to(torch.int32)
+    dropped = ((pos >= cap) & valid).sum(dim=1).to(torch.int32)
     # Entries that land nowhere go to a spare row n_rows, cut off below: the
     # reference's ``mode="drop"`` without the host sync a boolean mask costs.
     row = torch.where(valid & (pos < cap), ids, n_rows)
     col = pos.clamp(0, cap - 1)
+    batch = torch.arange(B, device=dev)[:, None]
     outs = []
     for arr, fill in zip(arrays, fills):
-        buf = torch.full((n_rows + 1, cap), fill, dtype=arr.dtype, device=dev)
-        buf[row, col] = arr
-        outs.append(buf[:n_rows])
+        buf = torch.full((B, n_rows + 1, cap), fill, dtype=arr.dtype, device=dev)
+        buf[batch, row, col] = arr
+        outs.append(buf[:, :n_rows])
     return outs, dropped
 
 
@@ -197,3 +218,17 @@ def _masked_setup(cfg, keys_block, out_keys, out_vals):
     setup = task_setup(cfg.setup_dim, cfg.setup_rounds, keys_block.sum(dim=1))
     live = out_keys != PAD_KEY
     return out_vals + torch.where(live, setup[:, None], 0.0).to(out_vals.dtype)
+
+
+def reduce_local(app, cfg, part_keys, part_vals, backend):
+    """One worker's reduce slots run one at a time, as a worker runs its
+    waves: one backend call per slot.
+
+    part_keys/part_vals: (slots, cap).  Returns out_keys/out_vals of the
+    same shape.
+    """
+    outs = []
+    for k, v in zip(part_keys, part_vals):
+        ok, ov = backend.reduce(k[None], v[None], app.reduce_op)
+        outs.append((ok[0], _masked_setup(cfg, k[None], ok, ov)[0]))
+    return tuple(torch.stack(x) for x in zip(*outs))

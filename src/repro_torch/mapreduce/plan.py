@@ -9,8 +9,11 @@ into wave steppers over task-major buffers:
 * ``combine_step()(bk, bv, bp)``        → compacted ``(M, Pc)`` task rows
   (only when ``cfg.combiner``), ``Pc = min(P, key_space)``;
 * ``shuffle_step(W)(bk, bv, bp)``       → ``(pk, pv, dropped, ok, ov)`` with
-  ``(R, cap)`` partitions, ``cap = partition_capacity(M·Pc, R, f)``, and
-  the reduce phase's output buffers;
+  ``(R, cap)`` partitions and the reduce phase's output buffers; the
+  ``lexsort`` backend uses the W-independent ``cap =
+  partition_capacity(M·Pc, R, f)``, the ``all_to_all`` backend the layout
+  of a real W-worker run (its pack and unpack halves over a worker axis,
+  the collective replaced by the block transpose it implements);
 * ``reduce_step(W)(pk, pv, ok, ov, start)`` → the ``(R, cap)`` outputs with
   one wave of W reduce tasks written in.
 
@@ -23,25 +26,33 @@ Every mode derives from them:
   epilogue), bit-exact against fused by construction;
 * :meth:`traced`    — the phases fenced one by one (``torch.cuda.
   synchronize`` on the card) and wall-clocked, with counters read from
-  the phase outputs, feeding a :class:`repro_torch.telemetry.PhaseRecorder`.
+  the phase outputs, feeding a :class:`repro_torch.telemetry.PhaseRecorder`;
+* :meth:`sharded`   — one worker per rank of a ``torch.distributed``
+  process group, the shuffle a literal ``all_to_all_single``;
+* :meth:`resumable` — the raw steppers driven one wave boundary at a time
+  by :class:`repro_torch.elastic.ResumableJob`.
 
 The per-grant steppers (:meth:`map_stepper` and the rest) are built once
 per canonical grant and cached, as the reference caches its jitted ones;
 here the cache holds the built closures, since the port has no ``jit``.
 The waves are Python loops where the reference uses ``fori_loop``, and
 the steppers write each wave into the accumulators in place, where the
-reference's functional update copies.  A final partial wave (or wave
-group) clamps its window back onto rows already done, as
-``dynamic_slice_in_dim`` does, and rewrites them with identical values.
+reference's functional update copies.  The fused, pipelined and traced
+modes start from uninitialised accumulators, whose every row a wave
+writes before anything reads it; the buffers a resumable job can observe
+between steps (:meth:`initial_map_buffers`, the shuffle stepper's output
+buffers) hold PAD_KEY / 0 / False, as the reference's do.  A final
+partial wave (or wave group) clamps its window back onto rows already
+done, as ``dynamic_slice_in_dim`` does, and rewrites them with identical
+values.
 On one CUDA stream the pipelined mode runs commit g-1 and compute g in
 order; its gain in the reference comes from XLA overlapping the two.
-The sharded and resumable modes are ported by later slices (ROADMAP.md,
-queue 1, items 6 and 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import time
@@ -70,6 +81,16 @@ def _pad_rows(arr, n_extra: int, fill):
         device=arr.device,
     )
     return torch.cat([arr, pad], dim=0)
+
+
+def _fenced(dev: torch.device, fn, *args):
+    """(fn(*args), wall s, process CPU s), ended by ``torch.cuda.synchronize``
+    on the card so that the wall covers the device work."""
+    t0, c0 = time.perf_counter(), time.process_time()
+    out = fn(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0, time.process_time() - c0
 
 
 def _window(start: int, rows: int, W: int) -> int:
@@ -137,8 +158,14 @@ class ExecutionPlan:
 
     def partition_cap(self, workers: int | None = None) -> int:
         """Partition capacity the shuffle barrier allocates at a grant
-        (lexsort: canonical, W-free)."""
-        return self.lex_capacity
+        (lexsort: canonical, W-free; all_to_all: the W-shaped layout)."""
+        if not self.shuffle.collective:
+            return self.lex_capacity
+        W = self.cfg.num_workers if workers is None else int(workers)
+        n_local = math.ceil(self.M / W) * self.shuffle_width
+        return phases.partition_capacity(
+            W * n_local, self.R, self.cfg.capacity_factor
+        )
 
     def meta(self, workers: int | None = None) -> dict:
         """Static shape facts telemetry and the cost estimator need."""
@@ -178,21 +205,30 @@ class ExecutionPlan:
 
         return prep
 
-    # The accumulators start uninitialised: the waves' windows cover every
-    # row, so each row is written before it is read.
-    def initial_map_buffers(self):
+    def initial_map_buffers(self, fill: bool = True):
+        """The (M, P) map accumulators: PAD_KEY / 0 / False, or left
+        uninitialised with ``fill=False`` where the waves' windows write
+        every row before anything reads it (fused, pipelined, traced)."""
         M, P, dev = self.M, self.P, self.device
+        if not fill:
+            return tuple(torch.empty((M, P), dtype=dt, device=dev)
+                         for dt in (torch.int32, torch.int32, torch.bool))
         return (
-            torch.empty((M, P), dtype=torch.int32, device=dev),
-            torch.empty((M, P), dtype=torch.int32, device=dev),
-            torch.empty((M, P), dtype=torch.bool, device=dev),
+            torch.full((M, P), PAD_KEY, dtype=torch.int32, device=dev),
+            torch.zeros((M, P), dtype=torch.int32, device=dev),
+            torch.zeros((M, P), dtype=torch.bool, device=dev),
         )
 
-    def initial_reduce_buffers(self, cap: int):
+    def initial_reduce_buffers(self, cap: int, fill: bool = True):
+        """The (R, cap) reduce outputs, filled or not as
+        :meth:`initial_map_buffers`."""
         R, dev = self.R, self.device
+        if not fill:
+            return tuple(torch.empty((R, cap), dtype=torch.int32, device=dev)
+                         for _ in range(2))
         return (
-            torch.empty((R, cap), dtype=torch.int32, device=dev),
-            torch.empty((R, cap), dtype=torch.int32, device=dev),
+            torch.full((R, cap), PAD_KEY, dtype=torch.int32, device=dev),
+            torch.zeros((R, cap), dtype=torch.int32, device=dev),
         )
 
     # The wave step is split at its data-dependency boundary: ``compute``
@@ -289,10 +325,57 @@ class ExecutionPlan:
 
         return step
 
+    def _a2a_shuffle_fn(self, W: int):
+        """The collective shuffle on one controller: pack and unpack over a
+        worker axis, the block transpose in place of ``all_to_all``.  The
+        per-worker computation and capacity layout are those of a real
+        W-worker :meth:`sharded` run at the grant held at the barrier."""
+        cfg_w = dataclasses.replace(self.cfg, num_workers=W)
+        shuffle, M, R = self.shuffle, self.M, self.R
+        waves_m, waves_r = cfg_w.map_waves, cfg_w.reduce_waves
+
+        def step(bk, bv, bp):
+            # The column width comes from the input: the combiner hands
+            # this barrier compacted (M, Pc) rows, and the per-worker
+            # stream (hence the exchange's capacity) shrinks with them.
+            Pb = bk.shape[1]
+            n_local = waves_m * Pb
+
+            # Worker-major local streams: worker w owns tasks w, w+W, ...
+            def per_worker(buf, fill):
+                padded = _pad_rows(buf, waves_m * W - M, fill)
+                return padded.reshape(waves_m, W, Pb).transpose(0, 1) \
+                    .reshape(W, n_local)
+
+            send, sdrop = shuffle.pack(
+                cfg_w, per_worker(bk, PAD_KEY), per_worker(bv, 0),
+                per_worker(bp, False),
+            )
+            # all_to_all: worker w's received row j is worker j's send row
+            # w, a block transpose of the (W, W, width) send blocks cut to
+            # their longest live prefix.
+            width = shuffle.live_width(cfg_w, send[2])
+            recv = (s[..., :width].transpose(0, 1).reshape(W, -1) for s in send)
+            (bk2, bv2), rdrop = shuffle.unpack(cfg_w, n_local, *recv)
+            # (W, waves_r, cap) -> reducer-indexed (R, cap): reducer r
+            # lives on worker r % W at local slot r // W.
+            cap = bk2.shape[-1]
+            pk = bk2.transpose(0, 1).reshape(waves_r * W, cap)[:R]
+            pv = bv2.transpose(0, 1).reshape(waves_r * W, cap)[:R]
+            return pk, pv, (sdrop.sum() + rdrop.sum()).to(torch.int32)
+
+        return step
+
+    def _partition_fn(self, W: int):
+        """The shuffle barrier at a grant: ``(pk, pv, dropped)``."""
+        if self.shuffle.collective:
+            return self._a2a_shuffle_fn(W)
+        return self._lexsort_shuffle_fn()
+
     def _shuffle_step_fn(self, W: int):
-        """The shuffle barrier with the reduce phase's output buffers, the
-        reference's stepper contract."""
-        partition = self._lexsort_shuffle_fn()
+        """The shuffle barrier with the reduce phase's filled output
+        buffers, the reference's stepper contract."""
+        partition = self._partition_fn(W)
         init_out = self.initial_reduce_buffers
 
         def step(bk, bv, bp):
@@ -340,7 +423,7 @@ class ExecutionPlan:
         W = self.cfg.num_workers if workers is None else int(workers)
         prep = self._prep_fn()
         map_step = self._map_step_fn(W)
-        shuffle_step = self._lexsort_shuffle_fn()
+        shuffle_step = self._partition_fn(W if self.shuffle.collective else 1)
         reduce_step = self._reduce_step_fn(W)
         map_waves = math.ceil(self.M / W)
         red_waves = math.ceil(self.R / W)
@@ -349,13 +432,13 @@ class ExecutionPlan:
 
         def phase_map(tokens):
             splits, valid = prep(tokens)
-            bufs = init_map()
+            bufs = init_map(fill=False)
             for i in range(map_waves):
                 bufs = map_step(splits, valid, *bufs, i * W)
             return bufs
 
         def phase_reduce(pk, pv):
-            bufs = init_red(pk.shape[1])
+            bufs = init_red(pk.shape[1], fill=False)
             for i in range(red_waves):
                 bufs = reduce_step(pk, pv, *bufs, i * W)
             return bufs
@@ -385,7 +468,8 @@ class ExecutionPlan:
         prep = self._prep_fn()
         map_pipe = self._software_pipeline(
             self._map_compute_fn(Weff_m), self._map_commit_fn(Weff_m),
-            math.ceil(self.M / Weff_m), Weff_m, self.initial_map_buffers,
+            math.ceil(self.M / Weff_m), Weff_m,
+            lambda: self.initial_map_buffers(fill=False),
         )
         red_compute = self._reduce_compute_fn(Weff_r)
         red_commit = self._reduce_commit_fn(Weff_r)
@@ -398,7 +482,7 @@ class ExecutionPlan:
         def phase_reduce(pk, pv):
             pipe = self._software_pipeline(
                 red_compute, red_commit, groups_r, Weff_r,
-                lambda: init_red(pk.shape[1]),
+                lambda: init_red(pk.shape[1], fill=False),
             )
             return pipe(pk, pv)
 
@@ -407,7 +491,7 @@ class ExecutionPlan:
             # Pure per-row work on the committed map buffers, ahead of the
             # shuffle barrier: no commit state of its own.
             fns["combine"] = self._combine_step_fn()
-        fns["shuffle"] = self._lexsort_shuffle_fn()
+        fns["shuffle"] = self._partition_fn(W if self.shuffle.collective else 1)
         fns["reduce"] = phase_reduce
         return fns
 
@@ -475,7 +559,9 @@ class ExecutionPlan:
     def fused(self, workers: int | None = None):
         """Mode ``fused``: the whole pipeline as one call.  Returns
         ``job(tokens) -> (out_keys (R, cap), out_vals (R, cap), dropped ())``
-        on the plan's device.  It queues its work without synchronising."""
+        on the plan's device.  It queues its work without synchronising,
+        but for the one value the all-to-all shuffle reads on the host
+        (``AllToAllShuffle.live_width``)."""
         return self._compose(self.phase_fns(workers))
 
     def pipelined(self, workers: int | None = None,
@@ -514,12 +600,7 @@ class ExecutionPlan:
         pair_bytes = phases.PAIR_BYTES
         app, cfg, dev = self.app, self.cfg, self.device
 
-        def fenced(fn, *args):
-            t0, c0 = time.perf_counter(), time.process_time()
-            out = fn(*args)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            return out, time.perf_counter() - t0, time.process_time() - c0
+        fenced = functools.partial(_fenced, dev)
 
         def job(tokens):
             trace = recorder.start_job(app.name, cfg, m["input_len"])
@@ -602,3 +683,195 @@ class ExecutionPlan:
             return ok, ov, dropped
 
         return job
+
+    def resumable(self, recorder=None):
+        """Mode ``resumable``: a :class:`repro_torch.elastic.ResumableJob`
+        whose wave steppers are this plan's (the cursor and regrant
+        bookkeeping live in the elastic layer)."""
+        from repro_torch.elastic.resumable import ResumableJob
+
+        return ResumableJob.from_plan(self, recorder=recorder)
+
+    # ------------------------------------------------------------- sharded
+
+    def sharded(self, group=None, counters: bool = False, recorder=None):
+        """Mode ``sharded``: this process is one worker of a
+        ``torch.distributed`` process group (default: the world group), W
+        = its size, and the shuffle a literal ``all_to_all_single``
+        (NCCL on CUDA tensors, gloo on CPU ones).  Rank w runs map tasks
+        w, w+W, ... and owns reducers w, w+W, ...; semantics match every
+        other mode.
+
+        Every rank's job returns the whole reducer-major ``(R, cap)``
+        output (an all-gather of the ranks' reduce slots) and ``dropped``
+        summed over ranks.  With ``counters=True`` it also returns
+        ``stats``: ``dropped_send``, ``dropped_recv`` and the (W, 2)
+        ``dropped_per_worker``.  With a recorder each phase is fenced and
+        wall-clocked on this rank, with counters summed across ranks.
+        """
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "the sharded mode needs an initialised torch.distributed "
+                "process group (torch.distributed.init_process_group)"
+            )
+        if group is None:
+            group = dist.group.WORLD
+        W = dist.get_world_size(group)
+        rank = dist.get_rank(group)
+        cfg, app = self.cfg, self.app
+        if cfg.num_workers != W:
+            raise ValueError(
+                f"cfg.num_workers={cfg.num_workers} != process group size {W}"
+            )
+        shuffle = self.shuffle
+        if not shuffle.collective:
+            # The sharded path's structural shuffle is the collective.
+            shuffle = _backends.SHUFFLE_BACKENDS["all_to_all"]
+        reduce_backend, reduce_op = self.reduce_backend, app.reduce_op
+        M, R, S, P = self.M, self.R, self.S, self.P
+        input_len, dev = self.input_len, self.device
+        waves_m, waves_r = cfg.map_waves, cfg.reduce_waves
+        n_local = waves_m * P
+        combiner, combine_cap = self.combiner, self.combine_cap
+
+        def w_map(tokens):
+            tokens = torch.as_tensor(tokens, device=dev)
+            if tuple(tokens.shape) != (input_len,):
+                raise ValueError(
+                    f"expected ({input_len},), got {tuple(tokens.shape)}"
+                )
+            padded = torch.zeros(waves_m * W * S, dtype=torch.int32, device=dev)
+            padded[:input_len] = tokens
+            valid = torch.arange(waves_m * W * S, device=dev) < input_len
+            # This rank's tasks: rank, rank + W, ... as (waves, 1, S).
+            splits = padded.reshape(waves_m, W, S)[:, rank:rank + 1]
+            vsplit = valid.reshape(waves_m, W, S)[:, rank:rank + 1]
+            return tuple(a.reshape(n_local) for a in
+                         phases.map_phase(app, cfg, splits, vsplit))
+
+        def w_combine(k, v, pv):
+            # Rank-local combine before any byte crosses the group: the
+            # stream (and the exchange built on it) shrinks to waves_m*Pc.
+            return tuple(a.reshape(-1) for a in phases.combine_rows(
+                reduce_backend, k.reshape(waves_m, P), v.reshape(waves_m, P),
+                pv.reshape(waves_m, P), reduce_op, combine_cap,
+            ))
+
+        def w_shuffle(k, v, pv):
+            return shuffle.exchange(cfg, group, k, v, pv)
+
+        def w_reduce(bk, bv):
+            return phases.reduce_local(app, cfg, bk, bv, reduce_backend)
+
+        def gather(t):
+            parts = [torch.empty_like(t) for _ in range(W)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return torch.stack(parts)
+
+        def global_sum(n: int) -> int:
+            t = torch.tensor(n, dtype=torch.int64, device=dev)
+            dist.all_reduce(t, group=group)
+            return int(t.item())
+
+        def finish(ok, ov, dropped):
+            # (W, waves_r, cap) -> (R, cap) indexed by reducer id: reducer
+            # r lives on worker r % W at local slot r // W.
+            out = gather(torch.stack([ok, ov]))
+            cap = ok.shape[-1]
+            ok, ov = out.permute(1, 2, 0, 3).reshape(2, waves_r * W, cap)[:, :R]
+            per_worker = gather(dropped)
+            total = per_worker.sum().to(torch.int32)
+            if not counters:
+                return ok, ov, total
+            pw = per_worker.cpu().numpy()
+            return ok, ov, total, {
+                "dropped_send": int(pw[:, 0].sum()),
+                "dropped_recv": int(pw[:, 1].sum()),
+                "dropped_per_worker": pw,
+            }
+
+        if recorder is None:
+            def job(tokens):
+                k, v, pv = w_map(tokens)
+                if combiner:
+                    k, v, pv = w_combine(k, v, pv)
+                bk, bv, dropped = w_shuffle(k, v, pv)
+                return finish(*w_reduce(bk, bv), dropped)
+
+            return job
+
+        pair_bytes = phases.PAIR_BYTES
+
+        fenced = functools.partial(_fenced, dev)
+
+        def traced_job(tokens):
+            trace = recorder.start_job(app.name, cfg, input_len)
+            try:
+                return run(tokens, trace)
+            except Exception:
+                if trace in recorder.traces:
+                    recorder.traces.remove(trace)
+                raise
+
+        def run(tokens, trace):
+            t_job = time.perf_counter()
+
+            (k, v, pv), dt, cpu = fenced(w_map, tokens)
+            pairs_emitted = global_sum(int(pv.sum().item()))
+            trace.record_phase(
+                "map", dt,
+                tasks=M, waves=waves_m, workers=W, records_in=input_len,
+                pairs_emitted=pairs_emitted, pairs_capacity=W * n_local,
+                cpu_s=cpu, cpu_workers=_NCPU,
+            )
+
+            shuffle_pairs_in = pairs_emitted
+            if combiner:
+                (k, v, pv), dt, cpu = fenced(w_combine, k, v, pv)
+                shuffle_pairs_in = global_sum(int(pv.sum().item()))
+                trace.record_phase(
+                    "combine", dt,
+                    tasks=M, workers=W,
+                    pairs_in=pairs_emitted, pairs_out=shuffle_pairs_in,
+                    bytes_in=pairs_emitted * pair_bytes,
+                    bytes_out=shuffle_pairs_in * pair_bytes,
+                    combine_capacity=combine_cap,
+                    cpu_s=cpu, cpu_workers=_NCPU,
+                    net_bytes=0.0,
+                )
+
+            (bk, bv, dropped), dt, cpu = fenced(w_shuffle, k, v, pv)
+            per_worker = gather(dropped).cpu().numpy()
+            n_dropped = int(per_worker.sum())
+            pairs_out = global_sum(int((bk != PAD_KEY).sum().item()))
+            trace.record_phase(
+                "shuffle", dt,
+                pairs_in=shuffle_pairs_in, pairs_out=pairs_out,
+                pairs_dropped=n_dropped,
+                bytes_in=shuffle_pairs_in * pair_bytes,
+                bytes_out=pairs_out * pair_bytes,
+                bytes_dropped=n_dropped * pair_bytes,
+                partitions=R, workers=W,
+                partition_capacity=int(bk.shape[-1]),
+                dropped_send=int(per_worker[:, 0].sum()),
+                dropped_recv=int(per_worker[:, 1].sum()),
+                cpu_s=cpu, cpu_workers=_NCPU,
+                net_bytes=shuffle_pairs_in * pair_bytes,
+                net_s=dt,
+            )
+
+            (ok, ov), dt, cpu = fenced(w_reduce, bk, bv)
+            out = finish(ok, ov, dropped)
+            trace.record_phase(
+                "reduce", dt,
+                tasks=R, waves=waves_r, workers=W,
+                segments_out=int((out[0] != PAD_KEY).sum().item()),
+                segment_slots=W * waves_r * int(bk.shape[-1]),
+                cpu_s=cpu, cpu_workers=_NCPU,
+            )
+            trace.finish(time.perf_counter() - t_job)
+            return out
+
+        return traced_job

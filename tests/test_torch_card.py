@@ -118,6 +118,59 @@ def test_pipelined_and_traced_jobs_equal_fused(combiner, M, R, W):
         assert ("pipeline" in trace.phase_names()) == (depth > 1)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", [False, True])
+def test_sharded_nccl_world1_equals_emulated(tmp_path, combiner):
+    """The sharded mode on an NCCL group of one rank (one card) against the
+    emulated all-to-all at W = 1, reduce backend ``cuda``: bit-exact, one
+    ``segment_reduce`` launch a reduce slot (R at W = 1)."""
+    _needs_card()
+    import datetime
+
+    import torch.distributed as dist
+
+    corpus = torch.from_numpy(wordcount_corpus(50_000, 500, seed=3)).cuda()
+    cfg = JobConfig(5, 3, 1, combiner=combiner, reduce_backend="cuda",
+                    shuffle_backend="all_to_all")
+    plan = ExecutionPlan(wordcount(500), cfg, len(corpus))
+    want = plan.fused()(corpus)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        seg = segment_reduce.launches
+        ok, ov, dropped, stats = plan.sharded(counters=True)(corpus)
+        torch.cuda.synchronize()
+        assert segment_reduce.launches - seg == 3
+    finally:
+        dist.destroy_process_group()
+    assert all(torch.equal(a, b) for a, b in zip((ok, ov, dropped), want))
+    assert stats["dropped_per_worker"].shape == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shuffle", ["lexsort", "all_to_all"])
+@pytest.mark.parametrize("combiner", [False, True])
+def test_resumable_on_card_equals_fused(shuffle, combiner):
+    """A resumable job on the card, preempted at every boundary and
+    resumed, equal to fused; one ``segment_reduce`` a reduce step."""
+    _needs_card()
+    from repro_torch.elastic import run_resumable
+
+    corpus = torch.from_numpy(wordcount_corpus(50_000, 500, seed=3)).cuda()
+    cfg = JobConfig(7, 3, 2, combiner=combiner, reduce_backend="cuda",
+                    shuffle_backend=shuffle)
+    plan = ExecutionPlan(wordcount(500), cfg, len(corpus))
+    fused = plan.fused()(corpus)
+    job = plan.resumable()
+    total = run_resumable(job, corpus).cursor.waves_executed
+    for k in range(1, total):
+        part = run_resumable(job, corpus, preempt_after=k)
+        seg = segment_reduce.launches
+        state = run_resumable(job, corpus, state=part)
+        assert segment_reduce.launches - seg == 2 - max(0, k - (total - 2))
+        assert all(torch.equal(a, b) for a, b in zip(job.result(state), fused)), k
+
+
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
 

@@ -134,13 +134,26 @@ def test_cuda_backend_rejects_other_ops():
                        device="cpu")
 
 
-@pytest.mark.parametrize("kw", [
-    {"shuffle_backend": "all_to_all"},
-])
-def test_later_slices_refused(kw):
-    cfg = port.JobConfig(2, 2, **kw)
-    with pytest.raises(NotImplementedError, match="later slice.*item 6"):
+def test_all_to_all_needs_a_group():
+    """The collective shuffle runs on a process group, as the reference's
+    needs a mesh: without ``group=`` build_job refuses, naming it."""
+    cfg = port.JobConfig(2, 2, shuffle_backend="all_to_all")
+    with pytest.raises(ValueError, match="group="):
         port.build_job(APPS["wordcount"][1], cfg, 64, device="cpu")
+
+
+def test_group_refused_with_lexsort():
+    with pytest.raises(ValueError, match="single-controller"):
+        port.build_job(APPS["wordcount"][1], port.JobConfig(2, 2), 64,
+                       group=object(), device="cpu")
+
+
+def test_sharded_without_a_process_group_raises():
+    """No initialised process group: the sharded mode raises and never runs
+    the emulated mode in its place."""
+    cfg = port.JobConfig(2, 2, shuffle_backend="all_to_all")
+    with pytest.raises(RuntimeError, match="process group"):
+        port.build_job_sharded(APPS["wordcount"][1], cfg, 64, None, device="cpu")
 
 
 def test_cuda_without_card_raises():
