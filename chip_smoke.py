@@ -67,8 +67,29 @@ Phases, one or more printed lines each, in run order:
    mid-reduce, each restored into a fresh job and resumed bit-equal to
    fused, with its bytes and save and restore walls; one
    ``segment_reduce`` a reduce step and one ``local_reduce`` a combine
-   step; phases 7-10 each count their launches from zero;
-11. serve: the LM serving path (the second main path) at the full width of
+   step;
+11. estimator: ``stage_cost_estimates`` for both applications at (20, 5,
+   1), backend ``"cuda"``, and WordCount with its combiner: every phase
+   available (combine included), the shuffle's ``net_bytes`` equal to its
+   pair slots times 8, no kernel launched; each phase's bytes over its
+   traced wall from phase 7, beside the card's HBM rate, as information;
+12. cluster: the predictive scheduler on the live engine: a traced
+   ``EngineOracle`` on the card, a 12-job trace of 2**22-2**26 tokens on
+   16 workers under predict-combine (backends ``torch`` and ``cuda``,
+   combiner off and on; it bootstraps the shared model database),
+   predict-sjf, predict-deadline and fifo-static on ``cuda``; then
+   predict-elastic on an ``ElasticCluster`` (7 jobs of 2**22-2**24
+   tokens), which must regrant on measured snapshot walls; then the
+   cluster CLI once in-process (``--oracle engine-traced``, 8 jobs, its
+   span trace).  Every job completes or is rejected, fifo-static
+   completes all, every trace conserves with its configuration's phases,
+   and the ``segment_reduce`` / ``local_reduce`` launches equal what the
+   oracle's ``cuda`` runs must make (one a reduce wave or step, one a
+   combiner job, warmups included); per policy the makespan, mean
+   turnaround, SLO attainment, the share of ``cuda`` plans and the online
+   prediction error beside the paper's 5 %, as information; phases 7-12
+   each count their launches from zero;
+13. serve: the LM serving path (the second main path) at the full width of
    qwen3-0.6b: latency profile, fit and SLO batch pick, 32 requests, the
    prediction at unprofiled batches 3 and 6 against a measurement, a batch
    of 2048-token prompts, decode-vs-forward logits, the 28-layer logits of
@@ -77,13 +98,13 @@ Phases, one or more printed lines each, in run order:
    scoring logits, loss and time, attention launch counts equal to 28 per
    decode_step and forward call the phase drives, and the device time by
    kernel of the long prompts' prefill and of one decode step;
-12. gemma: the same serving path at the full width of gemma-7b (28 layers,
+14. gemma: the same serving path at the full width of gemma-7b (28 layers,
    16 heads of 256, GeGLU, vocabulary 256000, 17 GB of bf16 weights): 8
    requests, 8 prompts of 2048 tokens with 32 new tokens into a 4096-slot
    cache, each layer's attention call held against its plain version, the
    28-layer logits within their measured floor, attention launches 28 per
    call;
-13. wkv6: the WKV6 kernel pair against its plain version (the chunked form)
+15. wkv6: the WKV6 kernel pair against its plain version (the chunked form)
    on the card, float32 at the reference test's shapes (ragged T, w = 1e-6),
    bf16 r, k, v with a non-zero initial state at the rwkv6-3b long-prompt
    batch, one 2048-token and one 32768-token sequence, elementwise and row
@@ -92,8 +113,8 @@ Phases, one or more printed lines each, in run order:
    that the check rejects an ignored initial state, a dropped bonus
    diagonal and a lost chunk state update; its time, the plain version's
    and the bound with both its terms;
-14. rwkv: the rwkv6-3b serving and scoring path at full width (32 layers):
-   the same serving steps as phase 11, decode-vs-forward logits across
+16. rwkv: the rwkv6-3b serving and scoring path at full width (32 layers):
+   the same serving steps as phase 13, decode-vs-forward logits across
    chunks, each layer's wkv6 call held against its plain version, the
    32-layer logits against the path with the plain version within a
    measured floor, 2048-token scoring, wkv6 launches equal to 32 per
@@ -526,12 +547,14 @@ def mapreduce_jobs(apps: dict):
                                               combiner=True)
 
 
-def phase_traced(apps: dict, expect: dict, pairs: dict) -> dict:
+def phase_traced(apps: dict, expect: dict, pairs: dict, traces: dict) -> dict:
     """The traced mode at full size: every job of ``mapreduce_jobs`` through
     ``build_job(..., recorder=PhaseRecorder())``, outputs bit-equal to the
     fused mode's, counters held against numpy counts of the corpus, the
-    conservation laws checked.  Returns the launches its jobs must have
-    made: one segment_reduce a reduce wave, one local_reduce a combiner job."""
+    conservation laws checked.  Each job's warm JobTrace goes into
+    ``traces`` under (name, M, R, W, combiner).  Returns the launches its
+    jobs must have made: one segment_reduce a reduce wave, one local_reduce
+    a combiner job."""
     from repro_torch.mapreduce import build_job
     from repro_torch.telemetry import PhaseRecorder
 
@@ -563,7 +586,7 @@ def phase_traced(apps: dict, expect: dict, pairs: dict) -> dict:
         if cfg.combiner and trace.counter("combine", "net_bytes") != 0:
             raise AssertionError("combine phase moved fabric bytes")
         job(corpus)  # a second, warm run for the walls
-        trace = recorder.last
+        trace = traces[(name, M, R, W, cfg.combiner)] = recorder.last
         seg += cfg.reduce_waves
         loc += int(cfg.combiner)
         log("traced", f"{name} M={M} R={R} W={W}{' combiner' if cfg.combiner else ''}: "
@@ -824,6 +847,235 @@ def phase_elastic(apps: dict) -> dict:
                         f"resumed == fused bit for bit")
                     del restored, done
         del fused
+    return want
+
+
+def phase_estimator(apps: dict, traces: dict) -> dict:
+    """The static cost estimator at full size: both applications at
+    ENGINE_CONFIGS[0] with backend "cuda", and WordCount with its combiner.
+    Every phase has a shape-only estimate (combine included), the shuffle's
+    net_bytes is the pair slots times PAIR_BYTES, and nothing launches.
+    Each phase's bytes over the traced phase wall of the traced path's
+    warm JobTrace of the same job is printed beside the card's HBM rate,
+    as information.  Returns the launches it must have made: none."""
+    from repro_torch.mapreduce import ExecutionPlan, JobConfig
+    from repro_torch.mapreduce.phases import PAIR_BYTES
+    from repro_torch.telemetry import stage_cost_estimates
+
+    M, R, W = ENGINE_CONFIGS[0]
+    for name, combiner in (("wordcount", False), ("eximparse", False), ("wordcount", True)):
+        app, corpus = apps[name]
+        cfg = JobConfig(M, R, W, reduce_backend="cuda", combiner=combiner)
+        t0 = time.perf_counter()
+        est = stage_cost_estimates(app, cfg, len(corpus))
+        wall = time.perf_counter() - t0
+        phases = ["map"] + ["combine"] * combiner + ["shuffle", "reduce"]
+        n_pairs = ExecutionPlan(app, cfg, len(corpus), device="meta").meta()["n_pairs"]
+        if list(est) != phases or not all(e["available"] for e in est.values()) or \
+                est["shuffle"]["net_bytes"] != n_pairs * PAIR_BYTES:
+            raise AssertionError(f"estimator {name} combiner={combiner}: {est}")
+        trace = traces[(name, M, R, W, combiner)]
+        log("estimator", f"{name} M={M} R={R} W={W}{' combiner' if combiner else ''} "
+            f"({wall:.2f} s on the host): all phases available, shuffle net_bytes "
+            f"{int(est['shuffle']['net_bytes'])} == {n_pairs} pairs x {PAIR_BYTES}; " + "; ".join(
+                f"{ph} {e['bytes'] / 1e9:.3f} GB, {e['flops']:.4g} flops, over the traced "
+                f"{trace.phase(ph).wall_s * 1e3:.2f} ms = "
+                f"{e['bytes'] / trace.phase(ph).wall_s / 1e9:.0f} GB/s"
+                for ph, e in est.items())
+            + f" (HBM {HBM_BYTES_PER_S / 1e9:.0f} GB/s)")
+    return {"segment_reduce": 0, "local_reduce": 0}
+
+
+#: the [cluster] phase: a trace of CLUSTER_JOBS jobs on CLUSTER_WORKERS
+#: workers, sizes log-uniform over CLUSTER_SIZES tokens; the predictive
+#: policies bootstrap at BOOTSTRAP_SIZES; the elastic arm runs
+#: ELASTIC_JOBS jobs over ELASTIC_SIZES on ELASTIC_WORKERS workers
+CLUSTER_JOBS, CLUSTER_WORKERS = 12, 16
+CLUSTER_SIZES = (1 << 22, 1 << 26)
+BOOTSTRAP_SIZES = (1 << 22, 1 << 24, 1 << 26)
+ELASTIC_JOBS, ELASTIC_WORKERS = 7, 8
+ELASTIC_SIZES = (1 << 22, 1 << 24)
+#: what the elastic arm's regrant cost model believes a snapshot and a
+#: restore cost before its first measurement: small beside the jobs'
+#: few milliseconds, so the first rescue passes its gate; each regrant is
+#: charged the oracle's measured walls, which then replace the prior
+ELASTIC_PRIOR_S = 1e-5
+
+
+def tally_oracle(oracle, want: dict, walls: dict):
+    """Wrap the engine oracle's entry points to tally the kernel launches
+    its ``cuda`` runs must make: one segment_reduce a reduce wave (or
+    reduce step) and one local_reduce a combiner job, for the warmup
+    runs too (a new plan, a new grant of a resumable job, a new snapshot
+    bucket).  Host walls of bootstrap-profiling calls go to ``walls``."""
+    from repro_torch.cluster.oracle import PROFILE_JOB_ID
+
+    time_, segments_, overhead_ = (oracle.time, oracle.remaining_segments,
+                                   oracle.regrant_overhead)
+
+    def count(backend, R, W, combiner, runs):
+        if backend == "cuda":
+            want["segment_reduce"] += runs * math.ceil(R / W)
+            want["local_reduce"] += runs * int(combiner)
+
+    def timed(app, backend, size, M, R, W, job_id=0, depth=1, combiner=False):
+        assert depth == 1
+        n, t0 = len(oracle._jobs), time.perf_counter()
+        t = time_(app, backend, size, M, R, W, job_id=job_id, combiner=combiner)
+        if job_id >= PROFILE_JOB_ID:
+            walls["bootstrap"] += time.perf_counter() - t0
+        count(backend, R, W, combiner, 1 + oracle.warmup * (len(oracle._jobs) - n))
+        return t
+
+    def segments(app, backend, size, M, R, W, **kw):
+        n = len(oracle._warmed)
+        out = segments_(app, backend, size, M, R, W, **kw)
+        count(backend, R, W, kw.get("combiner", False), 1 + len(oracle._warmed) - n)
+        return out
+
+    def overhead(app, backend, size, M, R, **kw):
+        n = len(oracle._overheads)
+        out = overhead_(app, backend, size, M, R, **kw)
+        walls["snapshots"].append(out)
+        if len(oracle._overheads) > n and kw.get("shuffled") and backend == "cuda":
+            want["local_reduce"] += int(kw.get("combiner", False))
+        return out
+
+    oracle.time, oracle.remaining_segments, oracle.regrant_overhead = timed, segments, overhead
+
+
+def check_records(tag: str, result, n_jobs: int) -> None:
+    """Every job completed or rejected, none lost; every completed engine
+    job's trace conserves and has its configuration's phases."""
+    if len(result.records) != n_jobs or any(
+            not (r.completed or not r.admitted) for r in result.records):
+        raise AssertionError(f"{tag}: jobs lost: {result.metrics()}")
+    for r in result.records:
+        if not r.completed:
+            continue
+        want = ["map"] + ["combine"] * r.plan.combiner + ["shuffle", "reduce"]
+        bad = r.trace.check_conservation()
+        got = [p for p in r.trace.phase_names() if p not in ("regrant", "suspended")]
+        if bad or got != want:
+            raise AssertionError(f"{tag} job {r.spec.job_id}: phases {got} (want {want}), {bad}")
+
+
+def policy_line(tag: str, result, wall: float) -> str:
+    m = result.metrics()
+    admitted = [r for r in result.records if r.admitted]
+    cuda = sum(r.plan.backend == "cuda" for r in admitted) / max(1, len(admitted))
+    slo = "n/a" if m["slo_attainment"] is None else f"{m['slo_attainment']:.2f}"
+    mae = "n/a" if m["pred_mae_pct"] is None else f"{m['pred_mae_pct']:.1f} %"
+    return (f"{tag}: {m['n_completed']} of {m['n_jobs']} completed, {m['n_rejected']} rejected; "
+            f"makespan {m['makespan_s'] * 1e3:.1f} ms, mean turnaround "
+            f"{m['mean_turnaround_s'] * 1e3:.1f} ms, SLO attainment {slo}, "
+            f"{cuda:.0%} planned on cuda, combiner {m['combiner_histogram']}, "
+            f"online mean |pred - actual| / actual {mae} (paper's band 5 %); "
+            f"{wall:.1f} s on the host")
+
+
+def phase_cluster() -> dict:
+    """The predictive scheduler on the live engine, on the card.
+
+    One traced EngineOracle (size quantum 2**20) serves a trace of
+    CLUSTER_JOBS jobs (sizes log-uniform over CLUSTER_SIZES, deadlines from
+    the oracle's nominal time) on CLUSTER_WORKERS workers under
+    predict-combine (backends torch and cuda, combiner off and on: it
+    bootstraps the shared model database at BOOTSTRAP_SIZES), then
+    predict-sjf and predict-deadline warm from that database, then
+    fifo-static on cuda; then predict-elastic on an ElasticCluster with
+    ELASTIC_JOBS jobs over ELASTIC_SIZES (three best-effort jobs first,
+    deadline jobs a moment later), which must regrant at least once on measured
+    snapshot walls; then the CLI once, in-process, with its own oracle
+    (fifo-static on torch, so it launches no kernel).  Every job completes
+    or is rejected, fifo-static completes all, every trace conserves.
+    Returns the launches the oracle's cuda runs must have made."""
+    import dataclasses as dc
+    import tempfile
+
+    from repro_torch.cluster import (Cluster, EngineOracle, assign_deadlines,
+                                     generate_workload, get_policy)
+    from repro_torch.core.predictor import ModelDatabase
+    from repro_torch.elastic import ElasticCluster
+    from repro_torch.launch import cluster as cli
+
+    torch.cuda.reset_peak_memory_stats()
+    want = {"segment_reduce": 0, "local_reduce": 0}
+    walls = {"bootstrap": 0.0, "snapshots": []}
+    oracle = EngineOracle(traced=True, size_quantum=1 << 20, device="cuda")
+    tally_oracle(oracle, want, walls)
+    jobs = generate_workload(CLUSTER_JOBS, seed=3, mean_interarrival=0.05,
+                             size_range=CLUSTER_SIZES)
+    jobs = assign_deadlines(jobs, lambda j: oracle.nominal_time(j.app, j.size),
+                            slack_range=(1.5, 6.0), fraction=0.6, seed=4)
+    db = ModelDatabase()
+    arms = {"backends": ("torch", "cuda"), "db": db, "seed": 0,
+            "bootstrap_sizes": BOOTSTRAP_SIZES}
+    for name, kw in (("predict-combine", arms), ("predict-sjf", arms),
+                     ("predict-deadline", arms),
+                     ("fifo-static", {"backend": "cuda"})):
+        t0 = time.perf_counter()
+        result = Cluster(CLUSTER_WORKERS, oracle).run(jobs, get_policy(name, **kw))
+        wall = time.perf_counter() - t0
+        check_records(name, result, len(jobs))
+        if name == "fifo-static" and result.metrics()["n_completed"] != len(jobs):
+            raise AssertionError(f"fifo-static left jobs: {result.metrics()}")
+        log("cluster", policy_line(name, result, wall))
+        if name == "predict-combine":
+            log("cluster", f"bootstrap: {len(db)} models (torch, cuda, torch+c, cuda+c per "
+                f"app) in {walls['bootstrap']:.1f} s of profiled runs")
+
+    # The elastic arm: best-effort jobs take the pool, deadline jobs arrive
+    # while they run and predict-elastic shrinks one to admit them.
+    base = generate_workload(ELASTIC_JOBS, seed=5, size_range=ELASTIC_SIZES)
+    head = [dc.replace(j, arrival=0.0) for j in base[:3]]
+    tail = assign_deadlines([dc.replace(j, arrival=1e-4 * (i + 1)) for i, j in
+                             enumerate(base[3:])],
+                            lambda j: oracle.nominal_time(j.app, j.size),
+                            slack_range=(1.5, 3.0), fraction=1.0, seed=6)
+    cluster = ElasticCluster(ELASTIC_WORKERS, oracle, snapshot_overhead_s=ELASTIC_PRIOR_S,
+                             restore_overhead_s=ELASTIC_PRIOR_S)
+    policy = get_policy("predict-elastic", **arms)
+    n_snap, t0 = len(walls["snapshots"]), time.perf_counter()
+    result = cluster.run(head + tail, policy)
+    wall = time.perf_counter() - t0
+    check_records("predict-elastic", result, ELASTIC_JOBS)
+    m = result.metrics()
+    log("cluster", "predict-elastic jobs: " + "; ".join(
+        f"{r.spec.job_id} {'deadline' if r.spec.deadline else 'best-effort'} "
+        f"{r.spec.size >> 20} Mi {r.plan.backend} ({r.plan.mappers}, {r.plan.reducers}, "
+        f"{r.plan.workers}) {r.start * 1e3:.2f}-{r.finish * 1e3:.2f} ms, segments "
+        + "/".join(str(w) for _, _, w in r.segments)
+        for r in result.records if r.admitted))
+    if m["n_regrants"] < 1:
+        raise AssertionError(f"the elastic arm never regranted: {m}")
+    snaps = walls["snapshots"][n_snap:]
+    log("cluster", policy_line("predict-elastic (elastic)", result, wall)
+        + f"; {m['n_regrants']} regrants ({policy.n_shrinks} shrinks, {policy.n_grows} grows), "
+        f"charged {m['regrant_overhead_s'] * 1e3:.1f} ms; measured snapshot save / restore "
+        + ", ".join(f"{s * 1e3:.1f} / {r * 1e3:.1f} ms" for s, r in snaps))
+
+    # The CLI, once, with its own oracle.
+    with tempfile.TemporaryDirectory() as tmp:
+        out_json, trace_out = Path(tmp) / "m.json", Path(tmp) / "t.json"
+        t0 = time.perf_counter()
+        cli.main(["--oracle", "engine-traced", "--jobs", "8", "--workers", "16",
+                  "--policies", "fifo-static", "--size-min", "4194304",
+                  "--size-max", "16777216", "--json", str(out_json),
+                  "--trace-out", str(trace_out)])
+        wall = time.perf_counter() - t0
+        m = json.loads(out_json.read_text())["fifo-static"]
+        spans = [e for e in json.loads(trace_out.read_text())["traceEvents"]
+                 if e.get("cat") == "job" and e.get("ph") == "X"]
+        if m["n_completed"] != 8 or sorted(e["args"]["job_id"] for e in spans) != list(range(8)):
+            raise AssertionError(f"CLI: {m['n_completed']} completed, job spans {len(spans)}")
+    log("cluster", f"CLI --oracle engine-traced --jobs 8 --policies fifo-static: 8 completed, "
+        f"span trace with one job span a job, makespan {m['makespan_s'] * 1e3:.1f} ms; "
+        f"{wall:.1f} s on the host")
+    log("cluster", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches wanted {want}")
+    if min(want.values()) < 1:
+        raise AssertionError(f"the cluster path planned no cuda work: {want}")
     return want
 
 
@@ -1963,10 +2215,13 @@ def main() -> int:
 
     # The traced and pipelined modes, the all-to-all shuffle and the
     # resumable jobs, each path counted from zero.
-    for path, drive in (("traced", lambda: phase_traced(apps, expect, pairs)),
+    traces = {}
+    for path, drive in (("traced", lambda: phase_traced(apps, expect, pairs, traces)),
                         ("pipelined", lambda: phase_pipelined(apps)),
                         ("a2a", lambda: phase_a2a(apps, expect)),
-                        ("elastic", lambda: phase_elastic(apps))):
+                        ("elastic", lambda: phase_elastic(apps)),
+                        ("estimator", lambda: phase_estimator(apps, traces)),
+                        ("cluster", phase_cluster)):
         segment_reduce.launches = 0
         local_reduce.launches = 0
         t_path = time.perf_counter()

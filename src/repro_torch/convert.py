@@ -10,7 +10,10 @@ elastic job snapshots.
   ``RegressionModel.to_dict()`` becomes a port model that predicts the
   same values;
 * :meth:`ModelDatabase.load` reads a JSON file written by the reference
-  (the format is shared);
+  (the format is shared); :func:`model_database_from_reference` /
+  :func:`model_database_to_reference` rename the backend in each model's
+  category key (the ``@dN`` depth and ``+c`` combiner suffixes kept), so
+  a database fitted by either package's scheduler warm-starts the other's;
 * :func:`lm_params_from_reference` — the reference LM's ``init_params``
   pytree, as numpy arrays, becomes the state dict of the port's
   ``models.transformer.Transformer``;
@@ -30,7 +33,7 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.core.predictor import ModelDatabase
+from repro_torch.core.predictor import _SEP, ModelDatabase
 from repro_torch.core.regression import RegressionModel
 from repro_torch.mapreduce.engine import JobConfig
 
@@ -39,6 +42,8 @@ __all__ = [
     "ModelDatabase",
     "job_config_from_reference",
     "lm_params_from_reference",
+    "model_database_from_reference",
+    "model_database_to_reference",
     "regression_model_from_reference",
     "snapshot_from_reference",
     "snapshot_to_reference",
@@ -130,4 +135,43 @@ def snapshot_to_reference(tree: dict) -> dict:
     """A port snapshot tree, ready for the reference's ``tree_to_state``."""
     return _rename_cursor_backend(
         tree, {v: k for k, v in REFERENCE_BACKEND_NAMES.items()}
+    )
+
+
+
+def _rename_category(cat: str, names: dict) -> str:
+    """``backend[@dN][+c]`` with the backend renamed, suffixes kept."""
+    combined = cat.endswith("+c")
+    base = cat[:-2] if combined else cat
+    backend, at, depth = base.partition("@d")
+    if backend not in names:
+        raise ValueError(
+            f"unknown reduce backend {backend!r} in model category "
+            f"{cat!r}; known: {sorted(names)}"
+        )
+    return names[backend] + at + depth + ("+c" if combined else "")
+
+
+def _rename_model_database(db_json: dict, names: dict) -> dict:
+    out = {}
+    for key, model in db_json.items():
+        parts = key.split(_SEP)
+        if len(parts) >= 3 and parts[2]:
+            parts[2] = _rename_category(parts[2], names)
+        out[_SEP.join(parts)] = model
+    return out
+
+
+def model_database_from_reference(db_json: dict) -> dict:
+    """A reference ``ModelDatabase`` file's JSON (``--save-models``) with
+    each model's backend category renamed to the port's (``jnp@d2+c`` ->
+    ``torch@d2+c``); write it out and ``ModelDatabase.load`` reads it."""
+    return _rename_model_database(db_json, REFERENCE_BACKEND_NAMES)
+
+
+def model_database_to_reference(db_json: dict) -> dict:
+    """The inverse of :func:`model_database_from_reference`: a port
+    database file's JSON with its categories renamed to the reference's."""
+    return _rename_model_database(
+        db_json, {v: k for k, v in REFERENCE_BACKEND_NAMES.items()}
     )

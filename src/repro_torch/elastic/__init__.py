@@ -11,9 +11,14 @@
     regrant.py   — WorkProgress + RegrantCostModel: predicted remaining
                    time under W' plus measured snapshot/restore overhead
                    against remaining time under W
+    sim.py       — ElasticCluster: the event-driven simulator grown
+                   preempt/resume/regrant events, shrink/grow worker
+                   accounting with conservation invariants, and
+                   segment-summed telemetry traces
 
-The reference's ``sim.py`` (the elastic cluster simulator) comes with the
-cluster layer (ROADMAP.md queue 1, item 9).
+Entry points: the ``predict-elastic`` policy
+(:mod:`repro_torch.cluster.policies`) and ``python -m
+repro_torch.launch.cluster --elastic --policies predict-elastic`` (CLI).
 """
 
 from repro_torch.elastic.regrant import (
@@ -22,6 +27,12 @@ from repro_torch.elastic.regrant import (
     WorkProgress,
 )
 from repro_torch.elastic.resumable import ResumableJob, run_resumable
+from repro_torch.elastic.sim import (
+    ElasticCluster,
+    Regrant,
+    RunningView,
+    SuspendedView,
+)
 from repro_torch.elastic.snapshot import (
     SNAPSHOT_VERSION,
     ElasticState,
@@ -34,11 +45,15 @@ from repro_torch.elastic.snapshot import (
 
 __all__ = [
     "SNAPSHOT_VERSION",
+    "ElasticCluster",
     "ElasticState",
     "JobCursor",
+    "Regrant",
     "RegrantCostModel",
     "RegrantDecision",
     "ResumableJob",
+    "RunningView",
+    "SuspendedView",
     "WorkProgress",
     "load_snapshot",
     "run_resumable",

@@ -15,13 +15,18 @@ def local_reduce(keys: torch.Tensor, values: torch.Tensor):
     Returns (out_keys, out_vals) with each row's run sums front-packed in
     ascending key order and a (PAD_KEY, 0) tail.  CPU tensors take the
     plain version; CUDA tensors launch the kernel on the current stream,
-    or raise.  ``local_reduce.launches`` counts kernel launches.
+    or raise; meta tensors get shape-only outputs of the same shapes.
+    ``local_reduce.launches`` counts kernel launches.
     """
     if keys.dim() == 1:
         ok, ov = local_reduce(keys[None], values[None])
         return ok[0], ov[0]
     if keys.device.type == "cpu" and values.device.type == "cpu":
         return local_reduce_ref(keys, values)
+    if keys.device.type == "meta" and values.device.type == "meta":
+        # Shape only (the cost estimator's pass): a copy reads each operand
+        # once and writes each result once, as the kernel moves them.
+        return keys.clone(), values.clone()
     _build.check_rows("local_reduce", keys, values)
     lib = _build.load()
     n_rows, n_cols = keys.shape

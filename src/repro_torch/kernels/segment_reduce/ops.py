@@ -13,7 +13,8 @@ def segment_reduce(keys: torch.Tensor, values: torch.Tensor):
 
     Returns (out_keys, out_vals): each run's int32 sum at its first slot,
     (PAD_KEY, 0) elsewhere.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream, or raise.
+    tensors launch the kernel on the current stream, or raise; meta
+    tensors get shape-only outputs of the same shapes.
     ``segment_reduce.launches`` counts kernel launches.
     """
     if keys.dim() == 1:
@@ -21,6 +22,10 @@ def segment_reduce(keys: torch.Tensor, values: torch.Tensor):
         return ok[0], ov[0]
     if keys.device.type == "cpu" and values.device.type == "cpu":
         return segment_reduce_ref(keys, values)
+    if keys.device.type == "meta" and values.device.type == "meta":
+        # Shape only (the cost estimator's pass): a copy reads each operand
+        # once and writes each result once, as the kernel moves them.
+        return keys.clone(), values.clone()
     _build.check_rows("segment_reduce", keys, values)
     lib = _build.load()
     out_k = torch.empty_like(keys)

@@ -8,10 +8,9 @@
     models.py — one regression per (phase, resource) on the paper's basis,
                 a composed total-time prediction, and ModelDatabase storage
                 under resource-qualified keys
-
-The reference's ``estimator.py`` (``estimates_available``,
-``stage_cost_estimates``: static per-phase flops and bytes from XLA's cost
-analysis) is not ported yet: ROADMAP.md queue 1, item 8.
+    estimator.py — static per-phase flops and bytes from one shape-only
+                (``device="meta"``) run of each phase function, in place of
+                the reference's XLA cost analysis
 """
 
 from repro_torch.telemetry.trace import (
@@ -21,6 +20,10 @@ from repro_torch.telemetry.trace import (
     PhaseRecorder,
     PhaseStats,
     collect_traced,
+)
+from repro_torch.telemetry.estimator import (
+    estimates_available,
+    stage_cost_estimates,
 )
 from repro_torch.telemetry.models import (
     DEFAULT_COUNTER_TARGETS,
@@ -46,8 +49,10 @@ __all__ = [
     "TIME_RESOURCE",
     "PhaseModelSet",
     "composed_vs_monolithic",
+    "estimates_available",
     "fit_phase_models",
     "phase_resource_key",
     "split_resource_key",
+    "stage_cost_estimates",
     "targets_from_traces",
 ]

@@ -171,7 +171,34 @@ def test_resumable_on_card_equals_fused(shuffle, combiner):
         assert all(torch.equal(a, b) for a, b in zip(job.result(state), fused)), k
 
 
-ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+@pytest.mark.cuda
+def test_engine_oracle_cuda_job_on_card():
+    """The cluster layer's engine oracle runs ``cuda``-backend jobs on the
+    card: traced, conserving, one ``segment_reduce`` a reduce wave and one
+    ``local_reduce`` a combiner job, for the warmup and the timed run."""
+    _needs_card()
+    from repro_torch.cluster import Cluster, EngineOracle, JobSpec, get_policy
+
+    oracle = EngineOracle(traced=True, device="cuda")
+    seg, loc = segment_reduce.launches, local_reduce.launches
+    res = Cluster(4, oracle).run(
+        [JobSpec(job_id=0, app="wordcount", size=1 << 16, arrival=0.0)],
+        get_policy("fifo-static", mappers=7, reducers=5, workers=2,
+                   backend="cuda"))
+    rec, = res.records
+    assert rec.completed and rec.true_time > 0
+    assert rec.trace.phase_names() == ["map", "shuffle", "reduce"]
+    assert rec.trace.check_conservation() == []
+    assert segment_reduce.launches - seg == 2 * 3  # ceil(5 / 2) a run
+    oracle.time("wordcount", "cuda", 1 << 16, 7, 5, 2, combiner=True)
+    trace = oracle.take_trace()
+    assert trace.phase_names() == ["map", "combine", "shuffle", "reduce"]
+    assert trace.check_conservation() == []
+    assert segment_reduce.launches - seg == 4 * 3
+    assert local_reduce.launches - loc == 2
+
+
+ATTN_TOL ={torch.float32: 2e-5, torch.bfloat16: 5e-2}
 
 
 def _attn_inputs(seed, dtype, *shapes):

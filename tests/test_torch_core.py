@@ -214,7 +214,7 @@ def test_port_imports_neither_jax_nor_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 40 else 0)\n"
+        "sys.exit(1 if bad or len(names) < 83 else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env,

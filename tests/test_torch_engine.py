@@ -178,6 +178,36 @@ def test_corpora_identical(seed):
         ref.exim_mainlog(5000, 100, seed=seed))
 
 
+@pytest.mark.parametrize("seed", [0, 3, 11])
+@pytest.mark.parametrize("n_tokens,n_txn", [(1, 3), (2, 2), (6001, 8),
+                                            (100_003, 1024), (77, 1)])
+def test_exim_corpus_identical_at_every_size(seed, n_tokens, n_txn):
+    """The vectorised burst draws equal the reference's scalar loop."""
+    np.testing.assert_array_equal(
+        port.exim_mainlog(n_tokens, n_txn, seed=seed),
+        ref.exim_mainlog(n_tokens, n_txn, seed=seed))
+
+
+def test_exim_bursts_vectorised_equal_loop_and_state():
+    """Draws and generator state after them equal the loop's, and a
+    generator holding a buffered half word takes the loop."""
+    from repro_torch.mapreduce.datagen import _bursts, _bursts_loop
+
+    for pre_draw in (False, True):
+        a, b = np.random.default_rng(5), np.random.default_rng(5)
+        if pre_draw:
+            a.integers(0, 9), b.integers(0, 9)
+        np.testing.assert_array_equal(_bursts(a, 9001, 300),
+                                      _bursts_loop(b, 9001, 300))
+        sa, sb = a.bit_generator.state, b.bit_generator.state
+        # ``uinteger`` is a stale half word unless ``has_uint32`` is set
+        assert (sa["state"], sa["has_uint32"]) == (sb["state"], sb["has_uint32"])
+        assert [int(a.integers(0, 7)) for _ in range(9)] == \
+            [int(b.integers(0, 7)) for _ in range(9)]
+        np.testing.assert_array_equal(a.integers(0, 8, 50),
+                                      b.integers(0, 8, 50))
+
+
 def test_hash_to_reducer_wraps_like_uint32():
     rng = np.random.default_rng(3)
     keys = np.concatenate([
