@@ -119,7 +119,23 @@ Phases, one or more printed lines each, in run order:
    32-layer logits against the path with the plain version within a
    measured floor, 2048-token scoring, wkv6 launches equal to 32 per
    decode_step and forward call of more than one token and none at one
-   token, and one decode step's device time by kernel.
+   token, and one decode step's device time by kernel;
+17. train: the training path of qwen3-0.6b at full width through
+   ``launch/train.py``'s ``run_training``: 50 steps at 8 x 512 with
+   checkpoints every 10 and a failure injected at step 25 (restored from
+   step 20 and replayed), the mean of the last 5 losses below the first 5,
+   save and restore walls of the 6 GB train state; 3 steps replayed twice
+   from one seed, equal; the gradient of a float32 cut (first 4 layers at
+   full width) against central differences per parameter group, and the
+   same check rejecting a gradient with one layer's attention zeroed;
+   ms/step at 16 x 512 over microbatch 1, 2, 8, 16, the paper's degree-2
+   fit and its prediction at the held-out microbatch 4 against a
+   measurement; the trained weights scored through ``flash_attention``
+   and through the plain path within 2e-2, with exactly one launch a
+   layer; step ms, tokens/s and peak memory beside the card.  The train
+   steps take the plain routes (the kernels have no backward, as the
+   reference's Pallas kernels have no gradient).  The serving phases run
+   under ``torch.no_grad``.
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -2162,6 +2178,305 @@ def rwkv_cut(model, cfg, tokens) -> None:
         torch.cuda.empty_cache()
 
 
+#: the [train] phase: qwen3-0.6b at full width through launch/train.py
+TRAIN = dict(batch=8, seq=512, steps=50, lr=1e-3, ckpt_every=10, fail_at=25)
+#: the step-time profile over the microbatch knob, and the held-out knob
+PROFILE_BATCH, PROFILE_SEQ, PROFILE_KNOBS, HELD_OUT_KNOB = 16, 512, (1, 2, 8, 16), 4
+#: depth of the float32 cut whose gradient is held against central differences
+TRAIN_CUT = 4
+#: directional-derivative check: relative step of each parameter, tolerance
+GRAD_H, GRAD_RTOL, GRAD_ATOL = 1e-2, 2e-2, 1e-4
+
+
+class TimedCheckpoints:
+    """Wraps the trainer's ``CheckpointManager`` to time its saves (the
+    blocking host copy of ``save_async``, the background write, the
+    synchronous ``save``) and restores, and to count them."""
+
+    def __init__(self):
+        from repro_torch.checkpoint import CheckpointManager
+
+        walls = self.walls = {"copy": [], "write": [], "save": [], "restore": []}
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                walls[name].append(time.perf_counter() - t0)
+                return out
+            return call
+
+        class Timed(CheckpointManager):
+            save_async = timed("copy", CheckpointManager.save_async)
+            _write = timed("write", CheckpointManager._write)
+            save = timed("save", CheckpointManager.save)
+            restore = timed("restore", CheckpointManager.restore)
+
+        self.cls = Timed
+
+
+def grad_groups(names, n_layers: int) -> dict:
+    """The parameter groups of the gradient check: each layer's attention,
+    each layer's FFN with its norms, and the embedding with the final norm."""
+    groups = {"embed + final_norm": ["embed", "final_norm"]}
+    for l in range(n_layers):
+        groups[f"attn {l}"] = [n for n in names if n.startswith(f"blocks.{l}.attn.")]
+        groups[f"ffn {l}"] = [n for n in names if n.startswith(f"blocks.{l}.")
+                              and not n.startswith(f"blocks.{l}.attn.")]
+    return groups
+
+
+def directional_check(loss_at, params: dict, grads: dict, groups: dict, seed: int) -> dict:
+    """Per group G: the autograd directional derivative <g_G, d_G> against
+    the central difference (L(theta + h d) - L(theta - h d)) / 2h, d_G
+    Gaussian scaled by each parameter's rms (a relative step of about h),
+    from a seeded generator, independent of the gradient under test.
+    Returns {group: (directional, central difference)}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, names in groups.items():
+        d = {n: torch.randn(params[n].shape, generator=gen, device="cuda")
+             * params[n].detach().pow(2).mean().sqrt() for n in names}
+        saved = {n: params[n].detach().clone() for n in names}
+        with torch.no_grad():
+            for n in names:
+                params[n].add_(d[n], alpha=GRAD_H)
+            up = loss_at()
+            for n in names:
+                params[n].copy_(saved[n]).add_(d[n], alpha=-GRAD_H)
+            down = loss_at()
+            for n in names:
+                params[n].copy_(saved[n])
+        out[name] = (d, (up - down) / (2 * GRAD_H))
+    return out
+
+
+def check_directions(tag: str, checks: dict, grads: dict) -> list:
+    """Groups whose <g, d> misses the central difference by more than
+    GRAD_RTOL of it plus GRAD_ATOL."""
+    failed = []
+    for name, (d, fd) in checks.items():
+        dd = sum(float((grads[n].double() * d[n].double()).sum()) for n in d)
+        ok = abs(dd - fd) <= GRAD_RTOL * abs(fd) + GRAD_ATOL
+        log("train", f"{tag} {name:18s} <g, d> {dd: .6e}  central difference {fd: .6e}  "
+            f"{'ok' if ok else 'REJECTED'}")
+        if not ok:
+            failed.append(name)
+    return failed
+
+
+def phase_train() -> dict:
+    """The training path of qwen3-0.6b at full width; returns the
+    ``flash_attention`` launches of scoring the trained weights, counted
+    from zero at its start."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import fit
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import StepConfig, build_eval_step
+    from repro_torch.train_lm import profile_microbatch
+
+    card = card_line()
+    cfg = get_config("qwen3-0.6b")
+    flash_attention.launches = 0
+    n_params = sum(int(np.prod(s)) for s in (
+        p.shape for p in tf.Transformer(cfg, device="meta").parameters()))
+    log("train", f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}; {n_params / 1e6:.1f} M parameters, {2 * n_params / 1e9:.3f} GB "
+        f"of bf16 weights, AdamW m and v in float32 ({8 * n_params / 1e9:.3f} GB); card {card}")
+
+    # 1. launch/train.py: 50 steps at 8 x 512, checkpoints every 10, a
+    # failure injected at step 25 (restored from step 20, steps 20-24 replayed).
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                      global_batch=TRAIN["batch"], seed=0, structure=0.9)
+    timed = TimedCheckpoints()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        saved_cls, train_mod.CheckpointManager = train_mod.CheckpointManager, timed.cls
+        try:
+            t0 = time.perf_counter()
+            out = train_mod.run_training(
+                cfg, data, train_mod.TrainLoopConfig(
+                    steps=TRAIN["steps"], ckpt_dir=tmp, ckpt_every=TRAIN["ckpt_every"],
+                    keep=2, log_every=10, lr=TRAIN["lr"], fail_at_step=TRAIN["fail_at"]),
+                device="cuda")
+            wall = time.perf_counter() - t0
+            peak_train = torch.cuda.max_memory_allocated()
+            # the trained weights, from the final checkpoint
+            model = tf.Transformer(cfg, device="cuda")
+            optim_cfg = AdamWConfig(lr=TRAIN["lr"])
+            template = train_mod.train_state(model, init_state(optim_cfg, dict(model.named_parameters())))
+            (weights, opt_state), last = timed.cls(tmp).restore(None, template, device="cuda")
+        finally:
+            train_mod.CheckpointManager = saved_cls
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(weights[n])
+    del weights, opt_state, template
+    losses, secs = out["losses"], out["step_seconds"]
+    replayed = TRAIN["fail_at"] - TRAIN["fail_at"] // TRAIN["ckpt_every"] * TRAIN["ckpt_every"]
+    first, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log("train", f"run_training: {len(losses)} steps recorded, last_step {out['last_step']}, "
+        f"wall {wall:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last5:.4f})")
+    if not (out["last_step"] == TRAIN["steps"] == last
+            and len(losses) == TRAIN["steps"] + replayed):
+        raise AssertionError(f"run_training ended at {out['last_step']} with {len(losses)} "
+                             f"steps, final checkpoint {last}; want {TRAIN['steps']} and "
+                             f"{TRAIN['steps'] + replayed}")
+    if not (all(math.isfinite(x) for x in losses) and last5 < first):
+        raise AssertionError(f"the loss did not fall: first 5 {first}, last 5 {last5}")
+    walls = timed.walls
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters()) + 8 * n_params + 4
+    if len(walls["restore"]) != 2:  # the failure's restore, then the trained weights
+        raise AssertionError(f"{len(walls['restore'])} restores, want 2: {walls}")
+    log("train", f"checkpoints of the {n_bytes / 1e9:.3f} GB train state: "
+        f"{len(walls['copy'])} async saves, host copy "
+        f"{', '.join(f'{w:.2f}' for w in walls['copy'])} s, background write "
+        f"{', '.join(f'{w:.2f}' for w in walls['write'])} s; final save "
+        f"{', '.join(f'{w:.2f}' for w in walls['save'])} s; restores "
+        f"{', '.join(f'{w:.2f}' for w in walls['restore'])} s")
+    steady = sorted(secs[1:])
+    med = steady[len(steady) // 2]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    log("train", f"step time at {TRAIN['batch']} x {TRAIN['seq']}: first {secs[0] * 1e3:.1f} "
+        f"ms, median {med * 1e3:.1f} ms (min {steady[0] * 1e3:.1f}, max {steady[-1] * 1e3:.1f}), "
+        f"{tokens / med:.0f} tokens/s; peak memory {peak_train / 2**30:.2f} GiB; card {card}")
+
+    # 2. Replay: 3 steps twice from one seed.
+    def replay():
+        return train_mod.run_training(
+            cfg, data, train_mod.TrainLoopConfig(steps=3, log_every=0, lr=TRAIN["lr"]),
+            device="cuda")["losses"]
+
+    a, b = replay(), replay()
+    how = "default algorithms"
+    if not np.allclose(a, b, rtol=1e-6, atol=0):
+        log("train", f"replay with the default algorithms differs: {a} vs {b}; again with "
+            "torch.use_deterministic_algorithms(True), CUBLAS_WORKSPACE_CONFIG=:4096:8")
+        import os
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            a, b = replay(), replay()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        how = "deterministic algorithms"
+    if not np.allclose(a, b, rtol=1e-6, atol=0):
+        raise AssertionError(f"replay is not deterministic: {a} vs {b}")
+    log("train", f"replay ({how}): 3 steps twice from seed 0, losses "
+        f"{', '.join(f'{x:.6f}' for x in a)} both times")
+
+    # 3. The gradient on a float32 cut of the first TRAIN_CUT layers at full
+    # width, against central differences; then with one layer's attention
+    # gradient zeroed (what a kernel under autograd would do), rejected.
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT, param_dtype="float32",
+                              compute_dtype="float32")
+    small = tf.Transformer(cut, device="cuda")
+    small.load_state_dict({n: t.float() for n, t in model.state_dict().items()
+                           if not n.startswith("blocks.") or int(n.split(".")[1]) < TRAIN_CUT})
+    batch = TokenPipeline(DataConfig(cfg.vocab_size, 128, 2, seed=5), device="cuda").batch_at(0)
+    params = dict(small.named_parameters())
+    loss = tf.loss_fn(small, cut, batch, wkv_kernel=False)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    checks = directional_check(lambda: float(tf.loss_fn(small, cut, batch)), params, grads,
+                               grad_groups(list(params), TRAIN_CUT), seed=7)
+    log("train", f"gradient check: {TRAIN_CUT}-layer float32 cut at full width, 2 x 128 "
+        f"tokens, loss {float(loss.detach()):.6f}, relative step {GRAD_H}, tolerance {GRAD_RTOL} of the "
+        f"central difference + {GRAD_ATOL}")
+    failed = check_directions("autograd", checks, grads)
+    if failed:
+        raise AssertionError(f"autograd gradient misses central differences in {failed}")
+    cut_layer = 1
+    faulty = {n: (torch.zeros_like(g) if n.startswith(f"blocks.{cut_layer}.attn.") else g)
+              for n, g in grads.items()}
+    rejected = check_directions(f"layer {cut_layer} attention zeroed", checks, faulty)
+    if rejected != [f"attn {cut_layer}"]:
+        raise AssertionError(f"the check with layer {cut_layer}'s attention gradient zeroed "
+                             f"rejected {rejected}, want only attn {cut_layer}")
+    del small, params, grads, faulty, checks, loss
+    torch.cuda.empty_cache()
+
+    # 4. The paper's loop on the trainer: ms/step over the microbatch knob
+    # at 16 x 512, the degree-2 fit, and the held-out knob predicted.
+    prof = DataConfig(vocab_size=cfg.vocab_size, seq_len=PROFILE_SEQ,
+                      global_batch=PROFILE_BATCH, seed=0, structure=0.9)
+    peaks = {}
+    times = {}
+    for mb in PROFILE_KNOBS + (HELD_OUT_KNOB,):
+        torch.cuda.reset_peak_memory_stats()
+        times[mb] = profile_microbatch(cfg, prof, [mb], device="cuda", lr=TRAIN["lr"])[0]
+        peaks[mb] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        log("train", f"microbatch {mb:2d} at {PROFILE_BATCH} x {PROFILE_SEQ}: "
+            f"{times[mb] * 1e3:.1f} ms/step (mean of 3 after a warm-up), "
+            f"{PROFILE_BATCH * PROFILE_SEQ / times[mb]:.0f} tokens/s, peak memory "
+            f"{peaks[mb] / 2**30:.2f} GiB")
+    # One 8 x 512 step under torch.profiler: launches and the device's busy share.
+    from repro_torch.train import build_train_step
+    prof_model = tf.init_params(cfg, seed=0, device="cuda")
+    prof_state = init_state(optim_cfg, dict(prof_model.named_parameters()))
+    train_step = build_train_step(cfg, optim_cfg)
+    prof_batch = TokenPipeline(data, device="cuda").batch_at(0)
+    prof_state, _ = train_step(prof_model, prof_state, prof_batch)  # warm-up
+
+    def one_step():
+        nonlocal prof_state
+        prof_state, _ = train_step(prof_model, prof_state, prof_batch)
+
+    profiled_breakdown(f"one train step at {TRAIN['batch']} x {TRAIN['seq']}", one_step)
+    del prof_model, prof_state
+    torch.cuda.empty_cache()
+    knobs = np.asarray([[float(mb)] for mb in PROFILE_KNOBS])
+    regr = fit(knobs, np.asarray([times[mb] for mb in PROFILE_KNOBS]), degree=2, scale=True,
+               lam=1e-9, device="cuda")
+    pred = float(regr.predict(np.asarray([[float(HELD_OUT_KNOB)]]), device="cuda").cpu()[0])
+    err = abs(pred - times[HELD_OUT_KNOB]) / times[HELD_OUT_KNOB]
+    log("train", f"fit over microbatch {list(PROFILE_KNOBS)} (degree 2): held-out microbatch "
+        f"{HELD_OUT_KNOB} predicted {pred * 1e3:.1f} ms/step, measured "
+        f"{times[HELD_OUT_KNOB] * 1e3:.1f} ms/step, error {err * 100:.1f} %; card {card}")
+    if not (math.isfinite(pred) and pred > 0):
+        raise AssertionError(f"the step-time model predicts {pred} s")
+
+    # 5. The trained weights scored on a held-out batch through the kernels
+    # and through the plain path.
+    held = TokenPipeline(dataclasses.replace(data, seed=1), device="cuda").batch_at(10_000)
+    before = flash_attention.launches
+    scores = {}
+    for use_flash in (True, False):
+        score = build_eval_step(cfg, StepConfig(use_flash=use_flash))
+        scores[use_flash] = float(score(model, held))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # a second, warm call, timed
+        score(model, held)
+        torch.cuda.synchronize()
+        scores[use_flash, "ms"] = (time.perf_counter() - t0) * 1e3
+    launched = flash_attention.launches - before
+    diff = abs(scores[True] - scores[False])
+    log("train", f"trained weights scored on a held-out {TRAIN['batch']} x {TRAIN['seq']} batch: "
+        f"flash_attention {scores[True]:.5f} ({scores[True, 'ms']:.1f} ms), plain path "
+        f"{scores[False]:.5f} ({scores[False, 'ms']:.1f} ms), |diff| {diff:.2e} (tolerance "
+        f"2e-2); the first 5 training losses averaged {first:.4f}")
+    if not (math.isfinite(scores[True]) and diff <= 2e-2):
+        raise AssertionError(f"scoring through the kernels {scores[True]} vs plain {scores[False]}")
+    if launched != 2 * cfg.n_layers:
+        raise AssertionError(f"scoring launched flash_attention {launched} times, want "
+                             f"{2 * cfg.n_layers}")
+    log("train", f"peak device memory: training {peak_train / 2**30:.2f} GiB, profile "
+        + ", ".join(f"mb {mb} {peaks[mb] / 2**30:.2f}" for mb in sorted(peaks)) + " GiB")
+    del model
+    torch.cuda.empty_cache()
+    log("launches", f"train path ({cfg.name}): flash_attention {flash_attention.launches} "
+        f"({cfg.n_layers} x 2 scoring calls; the train steps take the plain route)")
+    return {"flash_attention": flash_attention.launches}
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2239,10 +2554,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # The serving paths, qwen3-0.6b then gemma-7b (head_dim 256), each
-    # counted from zero inside.
-    launches.update(phase_serve())
-    torch.cuda.empty_cache()
-    gemma = phase_serve("gemma-7b", tag="gemma", requests=8, long_new=32)
+    # counted from zero inside; serving records no autograd graph.
+    with torch.no_grad():
+        launches.update(phase_serve())
+        torch.cuda.empty_cache()
+        gemma = phase_serve("gemma-7b", tag="gemma", requests=8, long_new=32)
     for name, n in gemma.items():
         launches[name] += n
     torch.cuda.empty_cache()
@@ -2250,7 +2566,16 @@ def main() -> int:
     # The rwkv6-3b path: the WKV6 kernel alone, then serving and scoring,
     # counted from zero inside.
     report.update(phase_wkv6())
-    launches.update(phase_rwkv())
+    with torch.no_grad():
+        launches.update(phase_rwkv())
+    torch.cuda.empty_cache()
+
+    # The training path: qwen3-0.6b trained at full width, its scoring
+    # launches counted from zero inside.
+    t_train = time.perf_counter()
+    train = phase_train()
+    launches["flash_attention"] += train["flash_attention"]
+    log("train", f"phase wall {time.perf_counter() - t_train:.1f} s")
 
     sources = {"segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce/kernel.py:28"),

@@ -23,6 +23,12 @@ next manager removes); ``save_async`` copies tensors to host memory at
 once and writes on a background thread; ``keep`` newest checkpoints
 survive; ``restore`` places the tensors on the device the restoring job
 names, whatever device saved them.
+
+bfloat16 leaves are stored as numpy stores the reference's (ml_dtypes)
+bfloat16 arrays: 2-byte void items (``|V2``) holding the bits, with the
+dtype ``bfloat16`` in the manifest.  A bfloat16 tensor template restores
+them bit for bit; numpy has no bfloat16, so without a device they come
+back as those ``|V2`` arrays.
 """
 
 from __future__ import annotations
@@ -38,10 +44,22 @@ import torch
 __all__ = ["CheckpointManager"]
 
 
+#: how numpy holds a bfloat16 array it has no dtype for (np.save of an
+#: ml_dtypes bfloat16 array writes this)
+BF16_BITS = np.dtype("V2")
+
+
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(BF16_BITS)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == BF16_BITS else str(arr.dtype)
 
 
 def _flatten(tree, path=()):
@@ -84,6 +102,8 @@ def _dict_key_paths(paths) -> list[list[str]] | None:
 
 def _np_dtype(leaf) -> np.dtype:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return BF16_BITS
         return torch.empty(0, dtype=leaf.dtype).numpy().dtype
     return np.asarray(leaf).dtype
 
@@ -155,7 +175,7 @@ class CheckpointManager:
             "treedef": None,
             "n_leaves": len(leaves),
             "leaves": [
-                {"shape": list(leaf.shape), "dtype": str(leaf.dtype)}
+                {"shape": list(leaf.shape), "dtype": _dtype_name(leaf)}
                 for leaf in leaves
             ],
             # Key-paths for nested-dict trees (None otherwise): restore
@@ -244,6 +264,8 @@ class CheckpointManager:
             return type(tree)(cls._place(v, device) for v in tree)
         if tree.dtype.kind in "US":
             return tree
+        if tree.dtype == BF16_BITS:
+            return torch.from_numpy(tree.view(np.int16)).view(torch.bfloat16).to(device)
         return torch.from_numpy(tree).to(device)
 
     def _restore_from_paths(self, d: str, manifest: dict):

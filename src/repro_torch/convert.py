@@ -16,7 +16,12 @@ elastic job snapshots.
   a database fitted by either package's scheduler warm-starts the other's;
 * :func:`lm_params_from_reference` — the reference LM's ``init_params``
   pytree, as numpy arrays, becomes the state dict of the port's
-  ``models.transformer.Transformer``;
+  ``models.transformer.Transformer``; :func:`lm_params_to_reference` is
+  its inverse;
+* :func:`adamw_state_from_reference` / :func:`adamw_state_to_reference` —
+  the AdamW state (``step`` and the ``m`` / ``v`` / ``master`` trees shaped
+  like the params) both ways, so a train checkpoint (params, AdamW state)
+  written by either package's ``CheckpointManager`` resumes in the other;
 * :func:`snapshot_from_reference` / :func:`snapshot_to_reference` — an
   elastic snapshot tree (``CheckpointManager.restore(step)`` of either
   package) with its cursor's reduce backend renamed, so a job preempted in
@@ -40,8 +45,11 @@ from repro_torch.mapreduce.engine import JobConfig
 __all__ = [
     "REFERENCE_BACKEND_NAMES",
     "ModelDatabase",
+    "adamw_state_from_reference",
+    "adamw_state_to_reference",
     "job_config_from_reference",
     "lm_params_from_reference",
+    "lm_params_to_reference",
     "model_database_from_reference",
     "model_database_to_reference",
     "regression_model_from_reference",
@@ -75,6 +83,31 @@ def regression_model_from_reference(d: dict) -> RegressionModel:
     return RegressionModel.from_dict(d)
 
 
+#: numpy's view of a bfloat16 array it has no dtype for: what ``np.load``
+#: returns for a reference checkpoint's (ml_dtypes) bfloat16 leaves
+_BF16_BITS = np.dtype("V2")
+
+
+def _tensor(x) -> torch.Tensor:
+    """A reference leaf (numpy, ml_dtypes bfloat16, or bfloat16 bits as
+    ``|V2``) as a tensor of the same dtype."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    if a.dtype == _BF16_BITS:
+        return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a reference leaf; bfloat16 as its bits in ``|V2`` items,
+    the bytes ``np.save`` writes for an ml_dtypes bfloat16 array."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_BF16_BITS)
+    return t.numpy()
+
+
 def lm_params_from_reference(tree: dict) -> dict:
     """State dict of the port's ``Transformer`` from a reference params pytree.
 
@@ -84,15 +117,9 @@ def lm_params_from_reference(tree: dict) -> dict:
     takes; dtypes are kept (bfloat16 through float32).
     """
 
-    def tensor(x):
-        a = np.asarray(x)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        return torch.from_numpy(np.array(a))  # a writable copy
-
-    state = {"embed": tensor(tree["embed"]), "final_norm": tensor(tree["final_norm"]["w"])}
+    state = {"embed": _tensor(tree["embed"]), "final_norm": _tensor(tree["final_norm"]["w"])}
     if "lm_head" in tree:
-        state["lm_head"] = tensor(tree["lm_head"])
+        state["lm_head"] = _tensor(tree["lm_head"])
     P = len(tree["blocks"])
     for p in range(P):
         blk = tree["blocks"][f"pos{p}"]
@@ -109,8 +136,59 @@ def lm_params_from_reference(tree: dict) -> dict:
         for name, stacked in leaves.items():
             stacked = np.asarray(stacked)
             for rep in range(n_rep):
-                state[f"blocks.{rep * P + p}.{name}"] = tensor(stacked[rep])
+                state[f"blocks.{rep * P + p}.{name}"] = _tensor(stacked[rep])
     return state
+
+
+def lm_params_to_reference(cfg, state: dict) -> dict:
+    """The reference's params pytree (numpy) from the port's state dict
+    (``model.state_dict()``, or any tree keyed the same, such as AdamW's
+    ``m``): layer ``i = rep * P + p`` stacked under ``blocks/pos{p}``."""
+    P = cfg.pattern_period
+    n_rep = cfg.n_layers // P
+    tree = {"embed": _array(state["embed"]), "final_norm": {"w": _array(state["final_norm"])}}
+    if "lm_head" in state:
+        tree["lm_head"] = _array(state["lm_head"])
+    blocks = {}
+    for p in range(P):
+        layers = [rep * P + p for rep in range(n_rep)]
+        names = sorted({k.split(".", 2)[2] for k in state if k.startswith(f"blocks.{p}.")})
+        blk: dict = {}
+        for name in names:
+            stacked = np.stack([_array(state[f"blocks.{i}.{name}"]) for i in layers])
+            *parents, leaf = name.split(".")
+            node = blk
+            for key in parents:
+                node = node.setdefault(key, {})
+            if leaf in ("norm1", "norm2", "q_norm", "k_norm"):
+                node[leaf] = {"w": stacked}
+            else:
+                node[leaf] = stacked
+        blocks[f"pos{p}"] = blk
+    tree["blocks"] = blocks
+    return tree
+
+
+def adamw_state_from_reference(tree: dict) -> dict:
+    """The port's AdamW state (``repro_torch.optim.init_state``'s layout)
+    from the reference's: ``step`` an int32 tensor; ``m``, ``v`` and
+    ``master`` (when present) from params-shaped trees to dicts keyed as
+    the model's parameters, dtypes kept."""
+    state = {"step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32)}
+    for key in ("m", "v", "master"):
+        if key in tree:
+            state[key] = lm_params_from_reference(tree[key])
+    return state
+
+
+def adamw_state_to_reference(cfg, state: dict) -> dict:
+    """The reference's AdamW state (numpy) from the port's: the inverse of
+    :func:`adamw_state_from_reference`."""
+    tree = {"step": np.asarray(int(state["step"]), dtype=np.int32)}
+    for key in ("m", "v", "master"):
+        if key in state:
+            tree[key] = lm_params_to_reference(cfg, state[key])
+    return tree
 
 
 def _rename_cursor_backend(tree: dict, names: dict) -> dict:

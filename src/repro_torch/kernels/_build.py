@@ -151,3 +151,22 @@ def raise_on_error(lib: ctypes.CDLL, name: str, code: int) -> None:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({code})")
 
+
+
+def refuse_autograd(name: str, plain_route: str, *tensors) -> None:
+    """Raise when autograd would record a kernel call.
+
+    The kernels write into fresh outputs through raw pointers, so their
+    results carry no ``grad_fn``: a call under autograd would silently cut
+    the gradient through it.  The reference's Pallas kernels have no
+    gradient either, so the kernels have no backward; training takes the
+    plain route ``plain_route`` instead.
+    """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: called under autograd with an operand that requires grad; the "
+            f"kernel has no backward (the reference's Pallas kernel has no gradient), "
+            f"so its output would silently cut the gradient. Training takes the plain "
+            f"route ({plain_route}); run the kernel under torch.no_grad() or "
+            f"torch.inference_mode()"
+        )

@@ -60,7 +60,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     Returns (B, Sq, Hq, hd): query qi at position kv_len - Sq + qi attends
     to the cache slots up to it.  CPU tensors take the plain version; CUDA
     tensors (float32 or bfloat16, contiguous, hd a multiple of 16 up to 256)
-    launch the kernel on the current stream, or raise.
+    launch the kernel on the current stream, or raise, also under autograd
+    with an operand that requires grad (the kernel has no backward).
     ``decode_attention.launches`` counts calls that launched the kernel
     (with its combine pass, when the keys were split).
     """
@@ -68,6 +69,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
             and v_cache.device.type == "cpu"):
         return decode_attention_ref(q, k_cache, v_cache, kv_len)
     check_attention("decode_attention", q, k_cache, v_cache)
+    _build.refuse_autograd("decode_attention", "use_flash=False: models.attention._sdpa",
+                           q, k_cache, v_cache)
     kv_len = int(kv_len)
     if not 0 < kv_len < 2**31 - q.shape[1]:
         raise ValueError(f"decode_attention: kv_len {kv_len} out of range")

@@ -59,11 +59,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query head h reads kv head h // (Hq // n_kv).  CPU tensors take the
     plain version; CUDA tensors (float32 or bfloat16, contiguous, hd a
     multiple of 16 up to 256) launch the kernel on the current stream, or
-    raise.  ``flash_attention.launches`` counts kernel launches.
+    raise, also under autograd with an operand that requires grad (the
+    kernel has no backward).  ``flash_attention.launches`` counts kernel
+    launches.
     """
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
     check_attention("flash_attention", q, k, v)
+    _build.refuse_autograd("flash_attention", "use_flash=False: models.attention._sdpa",
+                           q, k, v)
     lib = _build.load()
     B, Sq, Hq, hd = q.shape
     Sk, n_kv = k.shape[1], k.shape[2]

@@ -49,7 +49,8 @@ def wkv6(r, k, v, w, u, *, chunk: int = DEFAULT_CHUNK, state=None, out_dtype=Non
     contract; the model asks for float32).  S_T is float32.  CPU tensors
     take the plain version (``wkv6_chunked_ref``); CUDA tensors (r, k, v
     float32 or bfloat16, w, u and state float32, contiguous, hs and chunk at
-    most 64) launch the kernel pair on the current stream, or raise: first
+    most 64) launch the kernel pair on the current stream, or raise (also
+    under autograd with an operand that requires grad: no backward): first
     ``wkv6_states``, which writes the state entering each 64-step chunk to a
     float32 scratch of (B, H, ceil(T / 64), hs, hs), then ``wkv6_outputs``.
     The kernels tile by 64 steps whatever ``chunk`` is; the value does not
@@ -61,6 +62,7 @@ def wkv6(r, k, v, w, u, *, chunk: int = DEFAULT_CHUNK, state=None, out_dtype=Non
             state is None or state.device.type == "cpu"):
         return wkv6_chunked_ref(r, k, v, w, u, chunk=chunk, state=state, out_dtype=out_dtype)
     _check(r, k, v, w, u, state, chunk, out_dtype)
+    _build.refuse_autograd("wkv6", "wkv_kernel=False: wkv6_chunked_ref", r, k, v, w, u, state)
     lib = _build.load()
     B, T, H, hs = r.shape
     out = torch.empty(r.shape, dtype=out_dtype, device=r.device)

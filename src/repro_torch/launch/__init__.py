@@ -1,1 +1,2 @@
-"""Entry points of the LM stack: ``python -m repro_torch.launch.serve``."""
+"""Entry points of the LM stack: ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.train``."""

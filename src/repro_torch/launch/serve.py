@@ -41,6 +41,7 @@ class BatchedServer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @torch.no_grad()
     def serve(self, prompts: torch.Tensor, new_tokens: int):
         """prompts (B, P) int -> ((B, new_tokens) int64, seconds per token).
 

@@ -57,12 +57,10 @@ class Attention(nn.Module):
                   "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
         for name, (d_in, d_out) in shapes.items():
             w = dense_weight(generator, d_in, d_out, dtype, device)
-            self.register_parameter(name, nn.Parameter(w, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(w))
         if cfg.qk_norm:
-            self.q_norm = nn.Parameter(torch.ones(hd, dtype=dtype, device=device),
-                                       requires_grad=False)
-            self.k_norm = nn.Parameter(torch.ones(hd, dtype=dtype, device=device),
-                                       requires_grad=False)
+            self.q_norm = nn.Parameter(torch.ones(hd, dtype=dtype, device=device))
+            self.k_norm = nn.Parameter(torch.ones(hd, dtype=dtype, device=device))
 
     def forward(self, x, *, cache=None, cache_index: int | None = None,
                 use_flash: bool = False):

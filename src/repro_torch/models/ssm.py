@@ -9,8 +9,12 @@ port).  Per head, S in R^{hs x hs}:
 with the data-dependent decay w_t = exp(-exp(w0 + tanh(x_t A) B)).  A call
 of S > 1 tokens runs the chunked recurrence through the hand-written WKV6
 kernel (``kernels.rwkv6.wkv6``, one launch per layer, starting from the
-carried state; its plain version for CPU tensors); a decode step (S = 1) is
-one recurrence step of plain einsums, as in the reference.  Numerics follow
+carried state; its plain version for CPU tensors), or, with
+``wkv_kernel=False``, through that kernel's plain chunked form
+(``wkv6_chunked_ref``, the reference's ``lax.scan`` of chunks), which is the
+training route: the kernel has no backward, as the reference's Pallas
+kernel has no gradient.  A decode step (S = 1) is one recurrence step of
+plain einsums, as in the reference.  Numerics follow
 the reference: the lerps and projections in the compute dtype, the decay
 LoRA, the recurrence and the per-head norm in float32.  The reference's
 sharding pins have no counterpart on one card.
@@ -21,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.kernels.rwkv6 import wkv6
+from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
 from repro_torch.models.layers import dense_weight, rmsnorm, sigmoid
 
 #: rank of the decay LoRA (``repro.models.ssm.init_rwkv``)
@@ -60,7 +64,7 @@ class RWKV(nn.Module):
                 w = torch.ones(shape, device=device)
             else:
                 w = dense_weight(generator, *shape, dtype, device)
-            self.register_parameter(name, nn.Parameter(w.to(dtype), requires_grad=False))
+            self.register_parameter(name, nn.Parameter(w.to(dtype)))
 
 
 def rwkv_state_init(cfg, batch: int, dtype=torch.float32, device="cuda") -> dict:
@@ -76,8 +80,9 @@ def _shifted(xc, x_prev):
     return torch.cat([x_prev.to(xc.dtype)[:, None], xc[:, :-1]], dim=1)
 
 
-def rwkv_time_mix(x, p: RWKV, cfg, state: dict, chunk: int = 64):
-    """x (B, S, D): S > 1 runs the chunked recurrence, S = 1 one step.
+def rwkv_time_mix(x, p: RWKV, cfg, state: dict, chunk: int = 64, *, wkv_kernel: bool = True):
+    """x (B, S, D): S > 1 runs the chunked recurrence (the kernel, or its
+    plain chunked form with ``wkv_kernel=False``), S = 1 one step.
     Returns (out (B, S, D) in the compute dtype, new state)."""
     B, S, D = x.shape
     hs = cfg.rwkv_head_size
@@ -107,8 +112,9 @@ def rwkv_time_mix(x, p: RWKV, cfg, state: dict, chunk: int = 64):
         out = torch.einsum("bhk,bhkv->bhv", r1, S0 + u[None, :, :, None] * kv)[:, None]
         S_new = S0 * w1[..., None] + kv
     else:
-        out, S_new = wkv6(r, k, v, w, u, chunk=chunk, state=state["S"],
-                          out_dtype=torch.float32)
+        recurrence = wkv6 if wkv_kernel else wkv6_chunked_ref
+        out, S_new = recurrence(r, k, v, w, u, chunk=chunk, state=state["S"],
+                                out_dtype=torch.float32)
 
     # per-head norm, then the gate
     out = rmsnorm(out, p.ln_w, cfg.norm_eps)

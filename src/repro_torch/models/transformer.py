@@ -8,6 +8,9 @@ order (layer ``i = rep * P + p``) and a Python loop runs them.  Mamba
 blocks, MoE and embedding/VLM input raise ``NotImplementedError`` naming
 the ROADMAP item that ports them.
 
+The weights are trainable parameters: ``forward`` and ``loss_fn`` run
+under autograd when the caller has it on (the train step), with ``remat``
+as the reference's; ``decode_step`` and ``prefill`` never record a graph.
 The decode state keeps its write position as a host int, so a step never
 reads the device; attention caches are updated in place, RWKV states
 replaced by each call's new state.
@@ -16,10 +19,16 @@ replaced by each call's new state.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -60,7 +69,7 @@ class FFN(nn.Module):
         self.ffn_type = cfg.ffn_type
         for name, (d_in, d_out) in ffn_shapes(cfg.d_model, cfg.d_ff, cfg.ffn_type).items():
             w = dense_weight(generator, d_in, d_out, dtype, device)
-            self.register_parameter(name, nn.Parameter(w, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(w))
 
     def forward(self, x, compute_dtype):
         return ffn_apply(x, dict(self.named_parameters()), self.ffn_type, compute_dtype)
@@ -72,15 +81,15 @@ class Block(nn.Module):
     def __init__(self, cfg, dtype, device, generator=None):
         super().__init__()
         self.cfg = cfg
-        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device),
-                                    requires_grad=False)
+        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
         self.norm1 = ones()
         self.attn = Attention(cfg, dtype, device, generator)
         self.norm2 = ones()
         self.ffn = FFN(cfg, dtype, device, generator)
 
-    def forward(self, x, cache=None, *, pos=0, use_flash=False):
-        """Returns (x, cache); ``cache`` (k, v) is written in place at ``pos``."""
+    def forward(self, x, cache=None, *, pos=0, use_flash=False, wkv_kernel=True):
+        """Returns (x, cache); ``cache`` (k, v) is written in place at ``pos``.
+        ``wkv_kernel`` is the RWKV block's, unused here."""
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         h = rmsnorm(x, self.norm1, cfg.norm_eps)
@@ -99,19 +108,22 @@ class RWKVBlock(nn.Module):
     def __init__(self, cfg, dtype, device, generator=None):
         super().__init__()
         self.cfg = cfg
-        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device),
-                                    requires_grad=False)
+        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
         self.norm1 = ones()
         self.rwkv = RWKV(cfg, dtype, device, generator)
         self.norm2 = ones()
 
-    def forward(self, x, state: dict | None = None, *, pos=0, use_flash=False):
+    def forward(self, x, state: dict | None = None, *, pos=0, use_flash=False,
+                wkv_kernel=True):
         """Returns (x, new state); without a state, from a zero float32 one.
-        ``pos`` and ``use_flash`` are the attention block's, unused here."""
+        ``wkv_kernel=False`` runs the recurrence's plain chunked form (the
+        training route); ``pos`` and ``use_flash`` are the attention
+        block's, unused here."""
         cfg = self.cfg
         if state is None:
             state = rwkv_state_init(cfg, x.shape[0], device=x.device)
-        y, state = rwkv_time_mix(rmsnorm(x, self.norm1, cfg.norm_eps), self.rwkv, cfg, state)
+        y, state = rwkv_time_mix(rmsnorm(x, self.norm1, cfg.norm_eps), self.rwkv, cfg, state,
+                                 wkv_kernel=wkv_kernel)
         x = x + y.to(x.dtype)
         y, state = rwkv_channel_mix(rmsnorm(x, self.norm2, cfg.norm_eps), self.rwkv, cfg, state)
         return x + y.to(x.dtype), state
@@ -136,18 +148,17 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(
             kinds[cfg.block_pattern[i % cfg.pattern_period]](cfg, dtype, dev, generator)
             for i in range(cfg.n_layers))
-        self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=dev),
-                                       requires_grad=False)
+        self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=dev))
         if generator is not None:
             embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=generator,
                                 device=dev) * cfg.d_model**-0.5
             embed = embed.to(dtype)
         else:
             embed = torch.empty((cfg.vocab_padded, cfg.d_model), dtype=dtype, device=dev)
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.embed = nn.Parameter(embed)
         if not cfg.tie_embeddings:
             w = dense_weight(generator, cfg.d_model, cfg.vocab_padded, dtype, dev)
-            self.lm_head = nn.Parameter(w, requires_grad=False)
+            self.lm_head = nn.Parameter(w)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
@@ -176,25 +187,52 @@ def unembed(model: Transformer, cfg: ModelConfig, h: torch.Tensor) -> torch.Tens
     return logits
 
 
-def _run_blocks(model, x, *, state=None, use_flash=False):
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the unbatched matrix products' outputs and
+    recompute the rest (the batched attention products included), as the
+    reference's ``checkpoint_dots_with_no_batch_dims``."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematted(fn, remat: str):
+    """``fn`` (x -> x) under the reference's remat policy: ``none``,
+    ``full`` (recompute the whole block in the backward) or ``dots``."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be none, dots or full, got {remat!r}")
+
+
+def _run_blocks(model, x, *, state=None, use_flash=False, remat="none", wkv_kernel=True):
     """The blocks in layer order, each with its own entry of ``state``;
-    ``use_flash`` selects the attention kernels (RWKV blocks run their
-    kernel either way, as the reference ignores the flag there)."""
+    ``use_flash`` selects the attention kernels, ``wkv_kernel`` the WKV6
+    kernel of the RWKV blocks (the reference ignores ``use_flash`` there).
+    Without a state each block runs under ``remat``, as the reference remats
+    each period group."""
     for i, block in enumerate(model.blocks):
         if state is None:
-            x, _ = block(x, use_flash=use_flash)
+            run = functools.partial(block, use_flash=use_flash, wkv_kernel=wkv_kernel)
+            x = _rematted(lambda h, run=run: run(h)[0], remat)(x)
         else:
-            x, state.layers[i] = block(x, state.layers[i], pos=state.pos, use_flash=use_flash)
+            x, state.layers[i] = block(x, state.layers[i], pos=state.pos, use_flash=use_flash,
+                                       wkv_kernel=wkv_kernel)
     return x
 
 
-@torch.no_grad()
 def forward(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=False,
-            return_hidden=False):
+            remat="none", wkv_kernel=True, return_hidden=False):
     """Full forward -> (logits (B, S, V), aux), or (hidden, aux); aux is 0
-    (no MoE yet)."""
+    (no MoE yet).  Records a graph when autograd is on; the train step
+    passes ``wkv_kernel=False`` (the kernels have no backward)."""
     x = embed_inputs(model, cfg, batch)
-    x = _run_blocks(model, x, use_flash=use_flash)
+    x = _run_blocks(model, x, use_flash=use_flash, remat=remat, wkv_kernel=wkv_kernel)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     aux = torch.zeros((), device=x.device)
     if return_hidden:
@@ -202,15 +240,15 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=Fals
     return unembed(model, cfg, x), aux
 
 
-@torch.no_grad()
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=False,
-            logits_chunk: int = 0) -> torch.Tensor:
+            remat="none", wkv_kernel=True, logits_chunk: int = 0) -> torch.Tensor:
     """Next-token LM loss; ``logits_chunk > 0`` computes logits and the loss
     in sequence chunks of that size (never the full (B, S, V) logits)."""
     if not cfg.causal:
         raise NotImplementedError(
             f"{cfg.name}: encoder loss " + _NOT_PORTED.format("VLM and audio inputs"))
-    h, _ = forward(model, cfg, batch, use_flash=use_flash, return_hidden=True)
+    h, _ = forward(model, cfg, batch, use_flash=use_flash, remat=remat, wkv_kernel=wkv_kernel,
+                   return_hidden=True)
     labels = batch["tokens"][:, 1:].long()
     h = h[:, :-1]
     S = h.shape[1]

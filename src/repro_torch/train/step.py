@@ -1,7 +1,16 @@
-"""Serve-side step factories; counterpart of the serving half of ``repro.train.step``.
+"""Train and serve step factories; counterpart of ``repro.train.step``.
 
-Each ``build_*`` function returns a plain function over the model and a batch.  There is
-no jit: PyTorch runs the steps eagerly.
+Each ``build_*`` function returns a plain function over the model and a
+batch; PyTorch runs the steps eagerly (there is no jit).  The train steps
+update the model's weights in place and take gradients through the plain
+routes (``_sdpa`` attention, the chunked WKV6 form), as the reference trains
+through its plain paths: its Pallas kernels have no gradient, so the port's
+kernels have no backward.  The serving and scoring steps run without
+autograd and may take the kernels (``use_flash=True``).
+
+There is no mesh yet (ROADMAP.md queue 1, item 10.5: sharding): the
+compressed data-parallel step runs on a ``torch.distributed`` process
+group with the parameters replicated.
 """
 
 from __future__ import annotations
@@ -9,21 +18,92 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
+from repro_torch.optim import adamw, grad_compress
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
+    remat: str = "none"            # none | dots | full
     logits_chunk: int = 0          # 0 = full logits
+    microbatch: int = 1            # gradient-accumulation chunks
     use_flash: bool = False        # attention through the hand-written kernels
     cache_dtype: str = "bfloat16"  # KV cache dtype
 
 
-def build_eval_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
-    """(model, batch) -> forward-only LM loss (scoring)."""
+def _train_loss(cfg: ModelConfig, step_cfg: StepConfig):
+    if step_cfg.use_flash:
+        raise NotImplementedError(
+            "a train step with use_flash=True: the reference's Pallas kernels have no "
+            "gradient (jax.grad through them fails), so the port's kernels have no "
+            "backward; train with use_flash=False (the plain _sdpa route) and score "
+            "through the kernels with build_eval_step")
 
+    def loss_of(model, batch):
+        return tf.loss_fn(model, cfg, batch, remat=step_cfg.remat, wkv_kernel=False,
+                          logits_chunk=step_cfg.logits_chunk)
+
+    return loss_of
+
+
+def _apply(optim_cfg, model, grads: dict, opt_state: dict):
+    """AdamW at the schedule's scale, written into the model's weights."""
+    params = dict(model.named_parameters())
+    lr_scale = adamw.cosine_schedule(opt_state["step"])
+    new, opt_state, metrics = adamw.apply_updates(
+        optim_cfg, {n: p.detach() for n, p in params.items()}, grads, opt_state, lr_scale)
+    with torch.no_grad():
+        torch._foreach_copy_(list(params.values()), [new[n] for n in params])
+    return opt_state, metrics
+
+
+def build_train_step(cfg: ModelConfig, optim_cfg: adamw.AdamWConfig,
+                     step_cfg: StepConfig = StepConfig()):
+    """(model, opt_state, batch) -> (opt_state, metrics), the weights updated
+    in place; ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as tensors.
+
+    With ``microbatch = k > 1`` the batch is cut into k slices along its
+    first axis; each slice's gradients are summed in float32 buffers and
+    divided by k, as the reference accumulates (at k = 1 the gradients stay
+    in the parameter dtype).
+    """
+    loss_of = _train_loss(cfg, step_cfg)
+
+    def grads_of(model, batch):
+        names, leaves = zip(*model.named_parameters())
+        k = step_cfg.microbatch
+        if k <= 1:
+            loss = loss_of(model, batch)
+            return loss.detach(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+        for key, leaf in batch.items():
+            if leaf.shape[0] % k:
+                raise ValueError(f"batch {leaf.shape[0]} not divisible by microbatch {k}")
+        g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for i in range(k):
+            mb = {key: leaf.reshape(k, leaf.shape[0] // k, *leaf.shape[1:])[i]
+                  for key, leaf in batch.items()}
+            loss = loss_of(model, mb)
+            torch._foreach_add_(g_sum, [g.float() for g in torch.autograd.grad(loss, leaves)])
+            loss_sum = loss_sum + loss.detach()
+        return loss_sum / k, dict(zip(names, torch._foreach_div(g_sum, k)))
+
+    def train_step(model, opt_state, batch):
+        loss, grads = grads_of(model, batch)
+        opt_state, metrics = _apply(optim_cfg, model, grads, opt_state)
+        metrics["loss"] = loss
+        return opt_state, metrics
+
+    return train_step
+
+
+def build_eval_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
+    """(model, batch) -> forward-only LM loss (scoring), without autograd."""
+
+    @torch.no_grad()
     def eval_step(model, batch):
         return tf.loss_fn(model, cfg, batch, use_flash=step_cfg.use_flash,
                           logits_chunk=step_cfg.logits_chunk)
@@ -54,3 +134,33 @@ def build_decode_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
         return tf.decode_step(model, cfg, state, batch, use_flash=step_cfg.use_flash)
 
     return decode
+
+
+def build_compressed_dp_train_step(cfg: ModelConfig, optim_cfg: adamw.AdamWConfig,
+                                   group=None, step_cfg: StepConfig = StepConfig()):
+    """Data-parallel train step with int8 error-feedback gradient compression.
+
+    Returns ``(model, opt_state, err_state, batch) -> (opt_state, err_state,
+    metrics)``: each rank of ``group`` (the default group when None) holds
+    the whole model and its slice of the batch, takes its gradients, sums
+    them across the ranks through ``grad_compress.psum_compressed`` and
+    divides by the world size; the loss is the ranks' mean.  The weights
+    are updated in place, the same on every rank.  ``err_state`` starts as
+    ``grad_compress.init_error_state(dict(model.named_parameters()))``.
+    """
+    loss_of = _train_loss(cfg, step_cfg)
+
+    def step(model, opt_state, err_state, batch):
+        names, leaves = zip(*model.named_parameters())
+        loss = loss_of(model, batch)
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        n = dist.get_world_size(group)
+        loss = loss.detach().clone()
+        dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
+        grads, err_state = grad_compress.psum_compressed(grads, err_state, group)
+        opt_state, metrics = _apply(optim_cfg, model, {k: g / n for k, g in grads.items()},
+                                    opt_state)
+        metrics["loss"] = loss / n
+        return opt_state, err_state, metrics
+
+    return step

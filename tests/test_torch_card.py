@@ -441,3 +441,91 @@ def test_wkv6_entry_rejects_a_states_scratch_of_another_chunk_count():
     want, want_S = wkv6_chunked_ref(r, k, v, w, u)
     torch.testing.assert_close(out, want, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(s_out, want_S, rtol=2e-3, atol=2e-3)
+
+
+# ------------------------------------------------------------- the train path
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_autograd():
+    """Under autograd with an operand that requires grad each ctypes
+    wrapper raises (its output would carry no grad_fn and cut the gradient
+    silently); under ``torch.no_grad`` the same call launches."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, 64, 4, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((1, 64, 2, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    r, kk, vv, w, u = _wkv6_inputs(1, 1, 70, 2, 16)
+    calls = {
+        "flash_attention": lambda t: flash_attention(t, k, v, causal=True),
+        "decode_attention": lambda t: decode_attention(t, k, v, 64),
+        "wkv6": lambda t: wkv6(r, kk, vv, w, t),
+    }
+    operand = {"flash_attention": q, "decode_attention": q, "wkv6": u}
+    for name, call in calls.items():
+        leaf = operand[name].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match=f"{name}: called under autograd.*no backward"):
+            call(leaf)
+        with torch.no_grad():
+            out = call(leaf)
+        assert not (out[0] if isinstance(out, tuple) else out).requires_grad
+        call(operand[name])  # no operand requires grad: launches
+
+
+@pytest.mark.cuda
+def test_train_step_refuses_the_kernels_on_card():
+    """A train step asked for the kernels raises when built; the model's
+    kernel path under autograd raises at the first attention call."""
+    _needs_card()
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import StepConfig, build_train_step
+
+    cfg = smoke_config("qwen3-0.6b")
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        build_train_step(cfg, AdamWConfig(), StepConfig(use_flash=True))
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.zeros((2, 16), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="flash_attention: called under autograd"):
+        tf.loss_fn(model, cfg, {"tokens": tokens}, use_flash=True)
+
+
+@pytest.mark.cuda
+def test_full_width_train_step_on_card_matches_cpu():
+    """qwen3-0.6b at full width (d_model 1024, vocab 151936), cut to 2
+    layers and computed in float32: three train steps on the card against
+    the same steps with the model on the CPU, from the same weights and
+    batches.  Losses to 1e-4; weights to 1e-4 plus the lr applied (a
+    gradient element near zero may turn its AdamW update around)."""
+    _needs_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import build_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    optim_cfg = AdamWConfig(lr=1e-2)
+    step = build_train_step(cfg, optim_cfg)
+    cpu = tf.init_params(cfg, seed=0, device="cpu")
+    card = tf.Transformer(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    states = {"cpu": init_state(optim_cfg, dict(cpu.named_parameters())),
+              "cuda": init_state(optim_cfg, dict(card.named_parameters()))}
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
+    lr_sum = 0.0
+    for i in range(3):
+        tokens = TokenPipeline(data, device="cpu").batch_at(i)["tokens"]
+        states["cpu"], m_cpu = step(cpu, states["cpu"], {"tokens": tokens})
+        states["cuda"], m_card = step(card, states["cuda"], {"tokens": tokens.cuda()})
+        assert float(m_card["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-4)
+        assert float(m_card["grad_norm"]) == pytest.approx(float(m_cpu["grad_norm"]), rel=1e-3)
+        lr_sum += float(m_cpu["lr"])
+    assert int(states["cuda"]["step"]) == 3
+    for (n, a), b in zip(card.named_parameters(), cpu.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=3 * lr_sum,
+                                   msg=n)

@@ -70,8 +70,8 @@ def _tokens(seed, B, S, vocab):
 
 def _close(got, want, tol=TOL):
     if isinstance(want, torch.Tensor):
-        want = want.float().numpy()
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+        want = want.detach().float().numpy()
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
 
 
@@ -86,9 +86,9 @@ def test_configs_are_the_reference_configs(arch):
 def test_weights_carried_across(models):
     jcfg, params, cfg, model = models("llama3-8b")
     assert len(model.blocks) == cfg.n_layers == 2
-    np.testing.assert_array_equal(model.blocks[1].attn.wq.numpy(),
+    np.testing.assert_array_equal(model.blocks[1].attn.wq.detach().numpy(),
                                   np.asarray(params["blocks"]["pos0"]["attn"]["wq"][1]))
-    np.testing.assert_array_equal(model.lm_head.numpy(), np.asarray(params["lm_head"]))
+    np.testing.assert_array_equal(model.lm_head.detach().numpy(), np.asarray(params["lm_head"]))
 
 
 @pytest.mark.parametrize("arch,use_flash", [
@@ -270,7 +270,7 @@ def test_server_tokens_match_reference_where_decided(models):
         margins.append(top2[:, 1] - top2[:, 0])
         logits, jstate = jtf.decode_step(params, jcfg, jstate,
                                          {"tokens": want[:, t:t + 1]})
-    want, got = np.asarray(want), got.numpy()
+    want, got = np.asarray(want), got.detach().numpy()
     checked = 0
     for b in range(3):
         for t in range(new):

@@ -65,8 +65,8 @@ def _wkv_inputs(seed, B, T, H, hs, w_range=(0.05, 0.999)):
 
 def _close(got, want, tol=TOL):
     if isinstance(want, torch.Tensor):
-        want = want.float().numpy()
-    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+        want = want.detach().float().numpy()
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
 
 
@@ -302,11 +302,11 @@ def test_weights_carried_across(pair):
     jcfg, params, cfg, model = pair
     assert len(model.blocks) == cfg.n_layers == 2
     assert isinstance(model.blocks[0], tf.RWKVBlock)
-    np.testing.assert_array_equal(model.blocks[1].rwkv.cm_v.numpy(),
+    np.testing.assert_array_equal(model.blocks[1].rwkv.cm_v.detach().numpy(),
                                   np.asarray(params["blocks"]["pos0"]["rwkv"]["cm_v"][1]))
-    np.testing.assert_array_equal(model.blocks[0].norm2.numpy(),
+    np.testing.assert_array_equal(model.blocks[0].norm2.detach().numpy(),
                                   np.asarray(params["blocks"]["pos0"]["norm2"]["w"][0]))
-    np.testing.assert_array_equal(model.lm_head.numpy(), np.asarray(params["lm_head"]))
+    np.testing.assert_array_equal(model.lm_head.detach().numpy(), np.asarray(params["lm_head"]))
 
 
 @pytest.mark.parametrize("S", [24, 100])  # one ragged chunk; two chunks of 64
@@ -385,6 +385,6 @@ def test_deep_model_within_its_own_floor_of_the_reference():
     rwkv["w0"] = rwkv["w0"] * (1 + 2**-20)
     floor = np.abs(np.asarray(jtf.forward(nudged, jcfg, {"tokens": jt})[0], np.float32)
                    - want).max()
-    got = tf.forward(model, cfg, {"tokens": tt})[0].float().numpy()
+    got = tf.forward(model, cfg, {"tokens": tt})[0].detach().float().numpy()
     assert floor > 0.1
     assert np.abs(got - want).max() <= 2 * floor
