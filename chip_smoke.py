@@ -135,7 +135,35 @@ Phases, one or more printed lines each, in run order:
    layer; step ms, tokens/s and peak memory beside the card.  The train
    steps take the plain routes (the kernels have no backward, as the
    reference's Pallas kernels have no gradient).  The serving phases run
-   under ``torch.no_grad``.
+   under ``torch.no_grad``;
+18. granite (served after phase 14, trained after phase 17):
+   granite-moe-1b-a400m (24 layers, 32 experts top-8 on every layer,
+   heads of 64) through phase 13's serving steps with 8 requests
+   and 8 prompts of 2048 tokens into a 4096-slot cache, 32 new tokens; its
+   comparisons of decode with forward at a capacity factor of E / K, where
+   nothing drops (capacity depends on the tokens of the call); dropping
+   at the production factor held on the first MoE layer's real input
+   (kept slots equal to the k-major cumsum construction, min(load,
+   capacity) an expert, undropped tokens equal to the no-drop output);
+   phase 3 holds both kernels at its head_dim 64 shapes; after ``train``,
+   10 train steps at 8 x 512 through ``run_training`` (the loss with the
+   aux), each step's aux positive and finite; a 2-layer float32 cut's loss
+   equal to its cross-entropy plus the weighted aux, and its gradient
+   against central differences (the routing held at theta's) for each
+   router, one expert, an attention layer and the embedding, with a
+   zeroed router gradient rejected;
+19. jamba (after granite's serving): one 8-layer period of jamba-v0.1-52b
+   at full width (7 Mamba layers of d_in 8192, one attention layer, MoE of
+   16 experts top-2 on the odd positions; 32 layers do not fit the card):
+   the serving steps,
+   8 prompts of 2048 tokens into a 4096-slot cache with 32 new tokens,
+   the bf16 forward against the attention's plain versions' path within
+   twice its floor, prefill 16 + 8 decode steps against the forward pass
+   held in float32 (in bf16 top-2 routing flips at near-ties, so there it
+   is printed), each attention call held against its plain version and
+   each Mamba decode step (one recurrence step) against the plain chunked
+   scan of the same inputs padded to a 256-step chunk, one attention
+   launch a call.
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -1103,6 +1131,7 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 ATTN_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 QWEN = dict(Hq=16, n_kv=8, hd=128)  # qwen3-0.6b attention geometry
 GEMMA = dict(Hq=16, n_kv=16, hd=256)  # gemma-7b's: MHA, head_dim 256
+GRANITE = dict(Hq=16, n_kv=8, hd=64)  # granite-moe-1b-a400m's: head_dim 64
 
 
 def attention_bound(B, Sq, Hq, n_kv, hd, Sk, visible, itemsize=2):
@@ -1288,6 +1317,35 @@ def phase_attention() -> dict:
          lambda q, k, v: F.scaled_dot_product_attention(
              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
          attention_bound(1, Sq_g, gH, gkv, ghd, Sk_g, Sq_g * Sk_g)),
+    ]
+    # granite-moe-1b-a400m's heads (16 / 8 of 64, the kernels' hd <= 64
+    # instances): its decode over a 4096-slot cache, its long-prompt
+    # prefill and its 2048-token scoring.
+    rH, rkv, rhd = GRANITE["Hq"], GRANITE["n_kv"], GRANITE["hd"]
+    cases += [
+        ("decode_attention", f"granite decode B=8 Sq=1 kv_len=S_max={P_max}",
+         ((8, 1, rH, rhd), (8, P_max, rkv, rhd)), P_max,
+         lambda q, k, v: decode_attention(q, k, v, P_max),
+         lambda q, k, v: decode_attention_ref(q, k, v, P_max),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True),
+         attention_bound(8, 1, rH, rkv, rhd, P_max, P_max)),
+        ("decode_attention", f"granite prefill B=8 Sq=kv_len={S_pre} S_max={P_max}",
+         ((8, S_pre, rH, rhd), (8, P_max, rkv, rhd)), S_pre,
+         lambda q, k, v: decode_attention(q, k, v, S_pre),
+         lambda q, k, v: decode_attention_ref(q, k, v, S_pre),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k[:, :S_pre].transpose(1, 2), v[:, :S_pre].transpose(1, 2),
+             is_causal=True, enable_gqa=True),
+         attention_bound(8, S_pre, rH, rkv, rhd, S_pre, S_pre * (S_pre + 1) // 2)),
+        ("flash_attention", f"granite causal B=1 S={S_pre}",
+         ((1, S_pre, rH, rhd), (1, S_pre, rkv, rhd)), S_pre,
+         lambda q, k, v: flash_attention(q, k, v, causal=True),
+         lambda q, k, v: flash_attention_ref(q, k, v, causal=True),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+             enable_gqa=True),
+         attention_bound(1, S_pre, rH, rkv, rhd, S_pre, S_pre * (S_pre + 1) // 2)),
     ]
     report = {}
     for i, (name, case, (qs, ks), n_visible, kern, ref, lib,
@@ -1484,9 +1542,14 @@ def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32
     del long_server
     torch.cuda.empty_cache()
 
+    if cfg.moe is not None:
+        moe_drops(model, cfg, tag)
     # The kernel path on a 24-token prompt: forward, and prefill + decode
     # steps through decode_step, every kernel call held against its plain
-    # version on the same inputs.  Then the 28-layer logits against the same
+    # version on the same inputs.  An MoE model's capacity depends on the
+    # tokens of the call, so there decode and forward drop different slots
+    # at the production capacity factor: these comparisons run at E / K,
+    # where nothing drops (``moe_drops`` holds the dropping).  Then the 28-layer logits against the same
     # path with the plain versions (float32 scores and p, as the kernels);
     # against the plain versions with the softmax scale moved by 2^-20, the
     # floor to which the bf16 model amplifies any sub-ulp difference; and
@@ -1501,17 +1564,18 @@ def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32
     held: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(11)
     tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device="cuda")
+    ccfg = no_drop(cfg)
     with attention_swapped(*held_against_plain(held)):
-        full, _ = tf.forward(model, cfg, {"tokens": tokens}, use_flash=True)
-        dec = teacher_forced(model, cfg, tokens, 16)
+        full, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)
+        dec = teacher_forced(model, ccfg, tokens, 16)
     forwards, steps = forwards + 1, steps + 9
     with attention_swapped(*plain_versions):
-        full_ref, _ = tf.forward(model, cfg, {"tokens": tokens}, use_flash=True)
-        dec_ref = teacher_forced(model, cfg, tokens, 16)
+        full_ref, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)
+        dec_ref = teacher_forced(model, ccfg, tokens, 16)
     with attention_swapped(*nudged):
-        floor, _ = logits_err(tf.forward(model, cfg, {"tokens": tokens}, use_flash=True)[0],
-                              full_ref, V)
-    plain, _ = tf.forward(model, cfg, {"tokens": tokens}, use_flash=False)
+        floor, floor_rel = logits_err(
+            tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)[0], full_ref, V)
+    plain, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=False)
     # Decode vs forward: 2e-2 (tests/test_models_smoke.py), or twice what
     # the same model gives with the kernels' plain versions where the rest
     # of the bf16 model already differs more (gemma-7b: cuBLAS takes other
@@ -1526,15 +1590,23 @@ def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32
                              f"{floor_dec} with the plain versions")
     err_full, rel_full = logits_err(full, full_ref, V)
     err_step, _ = logits_err(dec, dec_ref, V)
+    # An MoE model's routing turns a sub-ulp change into another expert at
+    # near-ties, so there (and only there) the relative norms too are held
+    # to twice the floor's, and to twice the plain versions' own distance
+    # from the plain path; a dense model's stay at 5e-2.
+    moe = cfg.moe is not None
     limit = max(5e-2, 2 * floor)
-    if not (err_full <= limit and err_step <= limit and rel_full <= 5e-2):
+    rel_limit = max(5e-2, 2 * floor_rel) if moe else 5e-2
+    if not (err_full <= limit and err_step <= limit and rel_full <= rel_limit):
         raise AssertionError(f"kernel-path logits differ from the kernels' plain versions: "
-                             f"forward {err_full}, decode_step {err_step}, floor {floor}")
+                             f"forward {err_full} (relative norm {rel_full}), decode_step "
+                             f"{err_step}, floor {floor} (relative norm {floor_rel})")
     err_plain, rel_plain = logits_err(full, plain, V)
     err_ref_plain, rel_ref_plain = logits_err(full_ref, plain, V)
-    if not rel_plain <= 5e-2:
-        raise AssertionError(f"kernel-path logits differ from the plain path: "
-                             f"relative norm {rel_plain}")
+    plain_limit = max(rel_limit, 2 * rel_ref_plain) if moe else 5e-2
+    if not rel_plain <= plain_limit:
+        raise AssertionError(f"kernel-path logits differ from the plain path: relative norm "
+                             f"{rel_plain}, the plain versions' {rel_ref_plain}")
     log(tag, f"prefill 16 + 8 decode steps (f32 cache) == forward at each position: "
         f"max abs err {err_dec:.3e} (tolerance {tol_dec:.3g}; the plain versions' path "
         f"{floor_dec:.3e}), logits scale {float(full[..., :V].float().abs().max()):.2f}")
@@ -1545,13 +1617,15 @@ def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32
     log(tag, f"{cfg.n_layers}-layer logits, kernels vs their plain versions on the "
         f"same path: forward max abs err {err_full:.3e} (relative norm {rel_full:.3e}), "
         f"prefill + decode steps {err_step:.3e}; plain versions vs themselves with the "
-        f"softmax scale moved by 2^-20: {floor:.3e} (tolerance max(5e-2, 2 x that))")
+        f"softmax scale moved by 2^-20: {floor:.3e} (relative norm {floor_rel:.3e}; "
+        f"tolerance {limit:.3g}, relative norm {rel_limit:.3g})")
     log(tag, f"{cfg.n_layers}-layer forward logits vs the plain path (_sdpa): kernels "
-        f"max abs err {err_plain:.3e}, relative norm {rel_plain:.3e} (tolerance 5e-2); "
+        f"max abs err {err_plain:.3e}, relative norm {rel_plain:.3e} (tolerance "
+        f"{plain_limit:.3g}); "
         f"the kernels' plain versions max abs err {err_ref_plain:.3e}, relative norm "
         f"{rel_ref_plain:.3e}")
     del full, full_ref, dec, dec_ref, plain
-    float32_path(model, cfg, tokens, tag, plain_versions)
+    float32_path(model, ccfg, tokens, tag, plain_versions)
     forwards, steps = forwards + 1, steps + 9
 
     # Scoring at 2048 tokens: every kernel call held against its plain
@@ -1565,17 +1639,20 @@ def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32
     with attention_swapped(*plain_versions):
         want, _ = tf.forward(model, cfg, {"tokens": seq}, use_flash=True)
     with attention_swapped(*nudged):
-        floor_long, _ = logits_err(tf.forward(model, cfg, {"tokens": seq}, use_flash=True)[0],
-                                   want, V)
+        floor_long, floor_long_rel = logits_err(
+            tf.forward(model, cfg, {"tokens": seq}, use_flash=True)[0], want, V)
     err_long, rel_long = logits_err(got, want, V)
     del got, want
     n, e, r = held["flash_attention"]
-    if not (err_long <= max(5e-2, 2 * floor_long) and rel_long <= 5e-2):
+    rel_long_limit = max(5e-2, 2 * floor_long_rel) if moe else 5e-2
+    if not (err_long <= max(5e-2, 2 * floor_long) and rel_long <= rel_long_limit):
         raise AssertionError(f"2048-token logits differ from the kernels' plain versions: "
-                             f"{err_long}, floor {floor_long}")
+                             f"{err_long} (relative norm {rel_long}), floor {floor_long} "
+                             f"(relative norm {floor_long_rel})")
     log(tag, f"2048-token scoring: {n} flash_attention calls vs their plain versions "
         f"max abs err {e:.3e}, row err {r:.3e}; logits vs the plain versions' path max abs "
-        f"err {err_long:.3e} (relative norm {rel_long:.3e}), floor {floor_long:.3e}")
+        f"err {err_long:.3e} (relative norm {rel_long:.3e}, tolerance {rel_long_limit:.3g}), "
+        f"floor {floor_long:.3e} (relative norm {floor_long_rel:.3e})")
     loss = float(build_eval_step(cfg, StepConfig(use_flash=True, logits_chunk=512))(
         model, {"tokens": seq}))
     forwards += 1
@@ -2230,22 +2307,29 @@ def directional_check(loss_at, params: dict, grads: dict, groups: dict, seed: in
     """Per group G: the autograd directional derivative <g_G, d_G> against
     the central difference (L(theta + h d) - L(theta - h d)) / 2h, d_G
     Gaussian scaled by each parameter's rms (a relative step of about h),
-    from a seeded generator, independent of the gradient under test.
+    from a seeded generator, independent of the gradient under test.  A
+    group lists its parameters, or maps each to an index of its leading
+    axis (one expert's slice), outside which d is zero.
     Returns {group: (directional, central difference)}."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
     for name, names in groups.items():
-        d = {n: torch.randn(params[n].shape, generator=gen, device="cuda")
-             * params[n].detach().pow(2).mean().sqrt() for n in names}
-        saved = {n: params[n].detach().clone() for n in names}
+        rows = names if isinstance(names, dict) else dict.fromkeys(names)
+        d = {}
+        for n, row in rows.items():
+            d[n] = torch.randn(params[n].shape, generator=gen, device="cuda") \
+                * params[n].detach().pow(2).mean().sqrt()
+            if row is not None:
+                d[n][torch.arange(len(d[n]), device="cuda") != row] = 0
+        saved = {n: params[n].detach().clone() for n in rows}
         with torch.no_grad():
-            for n in names:
+            for n in rows:
                 params[n].add_(d[n], alpha=GRAD_H)
             up = loss_at()
-            for n in names:
+            for n in rows:
                 params[n].copy_(saved[n]).add_(d[n], alpha=-GRAD_H)
             down = loss_at()
-            for n in names:
+            for n in rows:
                 params[n].copy_(saved[n])
         out[name] = (d, (up - down) / (2 * GRAD_H))
     return out
@@ -2477,6 +2561,404 @@ def phase_train() -> dict:
     return {"flash_attention": flash_attention.launches}
 
 
+# ---------------------------------------------------------------- MoE, Mamba
+
+def no_drop(cfg):
+    """``cfg`` with an MoE capacity factor of E / K, at which a group's
+    capacity is all its tokens and nothing drops (itself without MoE)."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=max(m.capacity_factor, m.n_experts / m.top_k)))
+
+
+def moe_drops(model, cfg, tag: str) -> None:
+    """Dropping at the production capacity factor, on the first MoE layer's
+    real input for 8 x 2048 tokens (the attention sub-block on the plain
+    path, so no kernel launch is counted here): the kept slots equal the
+    reference's construction (per choice k, a cumsum of the k-th choices'
+    one-hot over the tokens plus the earlier choices' counts, kept below
+    the capacity), each expert of each group keeps min(load, capacity);
+    the tokens that kept all K choices get the same output as at E / K (no
+    drop), to the bfloat16 GEMMs' rounding."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rmsnorm
+
+    blk = model.blocks[0]
+    cdt = getattr(torch, cfg.compute_dtype)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 2048), generator=g, device="cuda")
+    x = F.embedding(tokens, model.embed)
+    y, _ = blk.attn(rmsnorm(x, blk.norm1, cfg.norm_eps), cfg=cfg, use_flash=False)
+    h = rmsnorm(x + y.to(x.dtype), blk.norm2, cfg.norm_eps)
+    params = dict(blk.moe.named_parameters())
+    a = moe.assign(h, params["router"], cfg)
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    counts, keep_ref = torch.zeros((a.G, 1, E), dtype=torch.long, device="cuda"), []
+    for k in range(K):
+        mk = F.one_hot(a.idx[..., k], E)                          # (G, T, E)
+        pos_k = torch.cumsum(mk, dim=1) - mk + counts
+        keep_ref.append(pos_k.gather(2, a.idx[..., k:k + 1])[..., 0] < a.cap)
+        counts = counts + mk.sum(1, keepdim=True)
+    if not torch.equal(a.keep, torch.stack(keep_ref, -1)):
+        raise AssertionError(f"{tag}: kept slots differ from the k-major cumsum construction")
+    load = F.one_hot(a.idx, E).sum((1, 2))                       # (G, E)
+    kept = (F.one_hot(a.idx, E) * a.keep[..., None]).sum((1, 2))
+    if not torch.equal(kept, load.clamp(max=a.cap)):
+        raise AssertionError(f"{tag}: kept slots per expert differ from min(load, capacity)")
+    y_prod, _ = moe.moe_ffn_grouped(h, params, cfg, cdt)
+    y_all, _ = moe.moe_ffn_grouped(h, params, no_drop(cfg), cdt)
+    full = a.keep.all(-1).view(8, 2048)
+    diff = (y_prod.float() - y_all.float()).abs().amax(-1)
+    scale = float(y_all.float().abs().max())
+    err_kept = float(diff[full].max()) if full.any() else 0.0
+    dropped = int((~a.keep).sum())
+    log(tag, f"MoE dropping at capacity factor {cfg.moe.capacity_factor} on layer 0 of "
+        f"8 x 2048 tokens ({a.G} group(s) of {a.T}, capacity {a.cap} a group, {E} experts, "
+        f"top-{K}): {dropped} of {a.keep.numel()} slots dropped ({dropped / a.keep.numel():.2%}), "
+        f"{int((~full).sum())} tokens lost a choice; expert loads {int(load.min())}-"
+        f"{int(load.max())}; tokens that kept every choice vs E / K (no drop): max abs err "
+        f"{err_kept:.3e} (output scale {scale:.3f}); tokens that lost one: median change "
+        f"{float(diff[~full].median()) if (~full).any() else 0.0:.3e}")
+    if err_kept > 2e-2 * scale:
+        raise AssertionError(f"{tag}: tokens that dropped nothing differ from the no-drop "
+                             f"output by {err_kept}")
+
+
+@contextlib.contextmanager
+def mamba_held(stats: dict):
+    """Holds every one-step Mamba scan (a decode step) against the plain
+    chunked scan on the same inputs padded to a 256-step chunk of identity
+    steps (dt = 0), the reference's form: output and state, relative to
+    their scales, kept in ``stats`` as (calls, max err)."""
+    from repro_torch.models import ssm
+
+    plain = ssm._selective_scan_chunked
+
+    def call(h0, dt, dtx, A, B_seq, C_seq, chunk=256):
+        y, h = plain(h0, dt, dtx, A, B_seq, C_seq, chunk)
+        if dt.shape[1] == 1:
+            pad = functools.partial(F.pad, pad=(0, 0, 0, chunk - 1))
+            y_ref, h_ref = plain(h0, pad(dt), pad(dtx), A, pad(B_seq), pad(C_seq), chunk)
+            err = max(float((y - y_ref[:, :1]).abs().max() / y_ref.abs().max()),
+                      float((h - h_ref).abs().max() / h_ref.abs().max()))
+            if not err <= 1e-6:
+                raise AssertionError(f"a Mamba decode step differs from the chunked scan by {err}")
+            n, e = stats.get("mamba step", (0, 0.0))
+            stats["mamba step"] = (n + 1, max(e, err))
+        return y, h
+
+    ssm._selective_scan_chunked = call
+    try:
+        yield
+    finally:
+        ssm._selective_scan_chunked = plain
+
+
+#: jamba-v0.1-52b on the card: one 8-layer period (32 layers are about
+#: 105 GB in bf16; one period about 26.5 GB)
+JAMBA_CUT = 8
+
+
+def phase_jamba() -> dict:
+    """jamba-v0.1-52b's serving path at full width, one period: prefill and
+    decode through the seven Mamba layers' states and the attention
+    layer's cache; returns the attention launches it made, counted from
+    zero, one per decode_step or kernel-path forward call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import BatchedServer
+    from repro_torch.models import transformer as tf
+
+    tag = "jamba"
+    full_cfg = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full_cfg, n_layers=JAMBA_CUT)
+    V = cfg.vocab_size
+    n_attn = cfg.layer_kinds().count("attn")
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    steps = forwards = 0
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(tag, f"{cfg.name}: {cfg.n_layers} of {full_cfg.n_layers} layers (one period "
+        f"{'/'.join(cfg.block_pattern)}; MoE {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} of {cfg.moe.d_ff_expert} on the odd positions, n_groups "
+        f"{cfg.moe.n_groups}), d_model {cfg.d_model}, Mamba d_in "
+        f"{cfg.mamba_expand * cfg.d_model} d_state {cfg.mamba_d_state}; {n_bytes / 1e9:.3f} GB "
+        f"of weights drawn on the card in {time.perf_counter() - t0:.1f} s (all 32 layers: "
+        f"{n_bytes / 1e9 * full_cfg.n_layers / cfg.n_layers:.0f} GB without the embedding's "
+        f"share, more than the card's 80 GB)")
+
+    server = BatchedServer(cfg, model)
+    latency = server.profile_latency_model()
+    steps += len(server.profiled) * TOKEN_LATENCY_STEPS
+    for b, t in server.profiled.items():
+        log(tag, f"profile batch {b}: {t * 1e3:.3f} ms/token")
+    batch = server.pick_batch_for_slo(latency, 50e-3)
+    log(tag, f"fit: train MAPE {latency.train_mape:.2f}%, R^2 {latency.r2:.4f}; "
+        f"SLO 50 ms/token -> predicted max batch {batch}")
+    g = torch.Generator(device="cuda")
+    done = 0
+    while done < 8:
+        b = min(batch, 8 - done)
+        prompts = torch.randint(0, V, (b, 8), generator=g.manual_seed(done), device="cuda")
+        toks, per_tok = server.serve(prompts, 16)
+        steps += 16
+        if toks.shape != (b, 16) or int(toks.min()) < 0 or int(toks.max()) >= V:
+            raise AssertionError(f"served tokens out of range: {tuple(toks.shape)}")
+        done += b
+        log(tag, f"served {b} requests of 8-token prompts, 16 new tokens: "
+            f"{per_tok * 1e3:.3f} ms/token ({done}/8 done)")
+
+    long_server = BatchedServer(cfg, model, max_len=4096)
+    prompts = torch.randint(0, V, (8, 2048), generator=g.manual_seed(7), device="cuda")
+    long_server.serve(prompts[:, :64], 4)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    toks, per_tok = long_server.serve(prompts, 32)
+    steps += 4 + 32
+    peak = torch.cuda.max_memory_allocated()
+    log(tag, f"8 requests of 2048-token prompts, max_len 4096 (one attention layer's KV cache "
+        f"{8 * 4096 * n_attn * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 / 1e9:.3f} GB, "
+        f"seven Mamba states {7 * 8 * cfg.mamba_expand * cfg.d_model * (cfg.mamba_d_state * 4 + 3 * 2) / 1e9:.3f} GB), "
+        f"32 new tokens: prefill {long_server.last_prefill_s * 1e3:.1f} ms "
+        f"({8 * 2048 / long_server.last_prefill_s:.0f} tokens/s), decode "
+        f"{per_tok * 1e3:.3f} ms/token; peak device memory {peak / 2**30:.2f} GiB")
+    if toks.shape != (8, 32):
+        raise AssertionError(f"long-prompt batch returned {tuple(toks.shape)}")
+    prefills = []
+    for _ in range(3):
+        long_server.serve(prompts, 1)
+        prefills.append(long_server.last_prefill_s)
+    steps += 3
+    log(tag, f"prefill of the same 8 x 2048-token prompts, three more times: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in prefills)} ms")
+    profiled_breakdown(f"{cfg.name} ({JAMBA_CUT} layers) prefill of the 8 x 2048-token prompts",
+                       lambda: long_server.serve(prompts, 1))
+    steps += 1
+    del long_server
+    torch.cuda.empty_cache()
+
+    # Prefill 16 + 8 decode steps against the forward pass, at E / K (no
+    # drop), every attention call held against its plain version and every
+    # Mamba decode step against the plain chunked scan.  In bf16, top-2
+    # routing turns the rounding of another GEMM shape into another expert
+    # at near-ties, so decode vs forward there is printed; it is held in
+    # float32 (the same weights, a float32 residual stream and float32
+    # compute), and the bf16 forward is held against the path with the
+    # attention's plain versions within twice its floor (that path against
+    # itself with the softmax scale moved by 2^-20), as in phase_serve.
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    ccfg = no_drop(cfg)
+    held: dict = {}
+    tokens = torch.randint(0, V, (2, 24), generator=g.manual_seed(11), device="cuda")
+    with attention_swapped(*held_against_plain(held)), mamba_held(held):
+        full, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)
+        dec = teacher_forced(model, ccfg, tokens, 16)
+    forwards, steps = forwards + 1, steps + 9
+    with attention_swapped(decode_attention_ref, flash_attention_ref):
+        full_ref, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)
+    with attention_swapped(decode_attention_ref, functools.partial(
+            flash_attention_ref, sm_scale=(1 + 2**-20) * cfg.resolved_head_dim**-0.5)):
+        _, floor_rel = logits_err(
+            tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)[0], full_ref, V)
+    plain, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=False)
+    err_dec, rel_dec = logits_err(dec, full[:, 15:], V)
+    err_full, rel_full = logits_err(full, full_ref, V)
+    err_plain, rel_plain = logits_err(full, plain, V)
+    _, rel_ref_plain = logits_err(full_ref, plain, V)
+    limit = max(5e-2, 2 * floor_rel)
+    log(tag, f"bf16: prefill 16 + 8 decode steps vs forward at each position: max abs err "
+        f"{err_dec:.3e}, relative norm {rel_dec:.3e} (routing flips, not held); kernel path vs "
+        f"its plain versions' path: max abs err {err_full:.3e}, relative norm {rel_full:.3e} "
+        f"(tolerance {limit:.3g}; floor, relative norm {floor_rel:.3e}); vs the plain path "
+        f"(_sdpa): max abs err {err_plain:.3e}, relative norm {rel_plain:.3e}, the plain "
+        f"versions' {rel_ref_plain:.3e}; logits scale {float(full[..., :V].float().abs().max()):.2f}")
+    if not (rel_full <= limit and rel_plain <= max(limit, 2 * rel_ref_plain)):
+        raise AssertionError(f"jamba kernels vs their plain versions {rel_full}, vs the plain "
+                             f"path {rel_plain} (plain versions {rel_ref_plain}), floor {floor_rel}")
+    del full, full_ref, dec, plain
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(ccfg, compute_dtype="float32")
+    embed = model.embed
+    model.embed = torch.nn.Parameter(embed.float(), requires_grad=False)
+    try:
+        with attention_swapped(*held_against_plain(held)), mamba_held(held):
+            full, _ = tf.forward(model, cfg32, {"tokens": tokens}, use_flash=True)
+            dec = teacher_forced(model, cfg32, tokens, 16)
+    finally:
+        model.embed = embed
+    forwards, steps = forwards + 1, steps + 9
+    err_dec, rel_dec = logits_err(dec, full[:, 15:], V)
+    log(tag, f"float32: prefill 16 + 8 decode steps vs forward at each position: max abs err "
+        f"{err_dec:.3e}, relative norm {rel_dec:.3e} (tolerance 2e-2)")
+    log(tag, "held on the same inputs, both runs: " + "; ".join(
+        f"{name} {n} calls, max err {e[0]:.3e}" for name, (n, *e) in sorted(held.items()))
+        + " (attention 5e-2 bf16, 2e-5 float32; a Mamba step vs the chunked scan 1e-6 of "
+        "the scale)")
+    if held.get("mamba step", (0,))[0] != 16 * cfg.layer_kinds().count("mamba"):
+        raise AssertionError(f"held {held.get('mamba step')} Mamba steps, want 16 a layer")
+    if not torch.allclose(dec[..., :V], full[:, 15:, :V], rtol=2e-2, atol=2e-2):
+        raise AssertionError(f"jamba float32 decode differs from forward by {err_dec}")
+    del full, dec
+    torch.cuda.empty_cache()
+
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    want = {"decode_attention": n_attn * steps, "flash_attention": n_attn * forwards}
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, want {want}")
+    log("launches", f"{tag} path ({cfg.name}, {JAMBA_CUT} layers): decode_attention "
+        f"{launches['decode_attention']} ({n_attn} x {steps} decode_step calls), "
+        f"flash_attention {launches['flash_attention']} ({n_attn} x {forwards} forward calls)")
+    serve_breakdown(server)
+    del server, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: the [granite] train steps: granite-moe-1b-a400m at full width
+GRANITE_TRAIN = dict(batch=8, seq=512, steps=10, lr=1e-3)
+#: depth of granite's float32 cut whose gradient is held against central
+#: differences
+GRANITE_CUT = 2
+
+
+def phase_granite_train() -> None:
+    """granite-moe-1b-a400m's training path at full width: a few steps of
+    ``run_training`` at 8 x 512 (the loss with the aux; each forward's aux
+    recorded, positive and finite), then a float32 cut's loss against its
+    cross-entropy plus the weighted aux, and its gradients of each router,
+    one expert, an attention layer and the embedding against central
+    differences."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import cross_entropy_loss
+
+    tag = "granite"
+    card = card_line()
+    cfg = get_config("granite-moe-1b-a400m")
+    run = GRANITE_TRAIN
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=run["seq"], global_batch=run["batch"],
+                      seed=0, structure=0.9)
+    auxes = []
+    forward = tf.forward
+
+    def recorded(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        auxes.append(out[1].detach())
+        return out
+
+    tf.forward = recorded
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        out = train_mod.run_training(cfg, data, train_mod.TrainLoopConfig(
+            steps=run["steps"], log_every=5, lr=run["lr"]), device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        tf.forward = forward
+    peak = torch.cuda.max_memory_allocated()
+    auxes = [float(a) for a in auxes]
+    losses, secs = out["losses"], out["step_seconds"]
+    steady = sorted(secs[1:])
+    med = steady[len(steady) // 2]
+    tokens = run["batch"] * run["seq"]
+    log(tag, f"run_training: {len(losses)} steps at {run['batch']} x {run['seq']} in "
+        f"{wall:.1f} s, loss (with {cfg.moe.router_aux_weight} x aux) {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; aux (summed over {cfg.n_layers} layers) {auxes[0]:.4f} -> "
+        f"{auxes[-1]:.4f}; step time first {secs[0] * 1e3:.1f} ms, median {med * 1e3:.1f} ms "
+        f"(min {steady[0] * 1e3:.1f}, max {steady[-1] * 1e3:.1f}), {tokens / med:.0f} tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB; card {card}")
+    if not (out["last_step"] == run["steps"] and len(auxes) == len(losses) == run["steps"]
+            and all(map(math.isfinite, losses + auxes)) and min(auxes) > 0):
+        raise AssertionError(f"granite training: last step {out['last_step']}, losses {losses}, "
+                             f"aux {auxes}")
+
+    # The gradient of a float32 cut of the first GRANITE_CUT layers at full
+    # width (seed-0 weights) against central differences: each layer's
+    # router, one expert of layer 0, layer 0's attention, the embedding;
+    # then with layer 1's router gradient zeroed, rejected.
+    cut = dataclasses.replace(cfg, n_layers=GRANITE_CUT, param_dtype="float32",
+                              compute_dtype="float32")
+    small = tf.init_params(cut, seed=0, device="cuda")
+    batch = TokenPipeline(DataConfig(cfg.vocab_size, 32, 2, seed=5), device="cuda").batch_at(0)
+    params = dict(small.named_parameters())
+    loss = tf.loss_fn(small, cut, batch)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    with torch.no_grad():
+        logits, aux = tf.forward(small, cut, batch)
+        xent = float(cross_entropy_loss(logits[:, :-1], batch["tokens"][:, 1:]))
+    gap = float(loss.detach()) - xent - cut.moe.router_aux_weight * float(aux)
+    log(tag, f"{GRANITE_CUT}-layer float32 cut: loss {float(loss.detach()):.6f} = cross-entropy "
+        f"{xent:.6f} + {cut.moe.router_aux_weight} x aux {float(aux):.6f} (diff {gap:.1e})")
+    if not abs(gap) <= 1e-5:
+        raise AssertionError(f"the loss is not cross-entropy + weighted aux: {gap}")
+    # Top-k routing makes the loss piecewise smooth, and autograd's gradient
+    # is that of the piece the routing picks: the central differences keep
+    # each MoE layer's experts and kept slots as at theta (the gates and the
+    # aux follow the perturbed router's probabilities).
+    routes: list = []
+    calls: list = []
+    assign = moe.assign
+
+    def recorded(*args, **kwargs):
+        routes.append(assign(*args, **kwargs))
+        return routes[-1]
+
+    def frozen(x, router, cfg_):
+        a = routes[calls.pop(0)]
+        E = cfg_.moe.n_experts
+        probs = torch.softmax(x.reshape(a.G, a.T, -1).float() @ router.float(), dim=-1)
+        gates = probs.gather(-1, a.idx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        top1 = F.one_hot(a.idx[..., 0], E).float().mean(-2)
+        return a._replace(gates=gates, aux=E * torch.mean(top1 * probs.mean(-2)))
+
+    def loss_at():
+        calls[:] = range(len(routes))
+        return float(tf.loss_fn(small, cut, batch))
+
+    e = 5 % cfg.moe.n_experts
+    groups = {"router 0": ["blocks.0.moe.router"], "router 1": ["blocks.1.moe.router"],
+              f"expert {e} of layer 0": {f"blocks.0.moe.{w}": e
+                                         for w in ("w_gate", "w_up", "w_down")},
+              "attn 0": [n for n in params if n.startswith("blocks.0.attn.")],
+              "embed + final_norm": ["embed", "final_norm"]}
+    try:
+        moe.assign = recorded
+        with torch.no_grad():
+            base = float(tf.loss_fn(small, cut, batch))
+        moe.assign = frozen
+        with torch.no_grad():
+            if abs(loss_at() - base) > 1e-6 * abs(base):
+                raise AssertionError("the held routing does not give the loss at theta")
+        checks = directional_check(loss_at, params, grads, groups, seed=7)
+    finally:
+        moe.assign = assign
+    log(tag, f"gradient check: {GRANITE_CUT}-layer float32 cut at full width, 2 x 32 tokens, "
+        f"loss {float(loss.detach()):.6f} (with the aux), routing held at theta's, relative "
+        f"step {GRAD_H}, tolerance {GRAD_RTOL} of the central difference + {GRAD_ATOL}")
+    failed = check_directions(f"{tag} autograd", checks, grads)
+    if failed:
+        raise AssertionError(f"granite's autograd gradient misses central differences in {failed}")
+    faulty = {n: (torch.zeros_like(g) if n == "blocks.1.moe.router" else g)
+              for n, g in grads.items()}
+    rejected = check_directions(f"{tag} router 1 zeroed", checks, faulty)
+    if rejected != ["router 1"]:
+        raise AssertionError(f"the check with router 1's gradient zeroed rejected {rejected}")
+    del small, params, grads, faulty, checks
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2553,15 +3035,22 @@ def main() -> int:
     del apps
     torch.cuda.empty_cache()
 
-    # The serving paths, qwen3-0.6b then gemma-7b (head_dim 256), each
-    # counted from zero inside; serving records no autograd graph.
+    # The serving paths, qwen3-0.6b, gemma-7b (head_dim 256),
+    # granite-moe-1b-a400m (MoE, head_dim 64) and one period of jamba-v0.1
+    # (Mamba, MoE), each counted from zero inside; serving records no
+    # autograd graph.
     with torch.no_grad():
         launches.update(phase_serve())
         torch.cuda.empty_cache()
-        gemma = phase_serve("gemma-7b", tag="gemma", requests=8, long_new=32)
-    for name, n in gemma.items():
-        launches[name] += n
-    torch.cuda.empty_cache()
+        for path in (lambda: phase_serve("gemma-7b", tag="gemma", requests=8, long_new=32),
+                     lambda: phase_serve("granite-moe-1b-a400m", tag="granite", requests=8,
+                                         long_new=32),
+                     phase_jamba):
+            t_path = time.perf_counter()
+            for name, n in path().items():
+                launches[name] += n
+            torch.cuda.empty_cache()
+            log("launches", f"path wall {time.perf_counter() - t_path:.1f} s")
 
     # The rwkv6-3b path: the WKV6 kernel alone, then serving and scoring,
     # counted from zero inside.
@@ -2576,6 +3065,9 @@ def main() -> int:
     train = phase_train()
     launches["flash_attention"] += train["flash_attention"]
     log("train", f"phase wall {time.perf_counter() - t_train:.1f} s")
+    t_train = time.perf_counter()
+    phase_granite_train()
+    log("granite", f"training phase wall {time.perf_counter() - t_train:.1f} s")
 
     sources = {"segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce/kernel.py:28"),

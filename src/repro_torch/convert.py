@@ -113,8 +113,9 @@ def lm_params_from_reference(tree: dict) -> dict:
 
     The reference stacks each in-period position's parameters over repeats
     (``blocks/pos{p}/...`` with leading axis ``n_rep``), so layer
-    ``i = rep * P + p``.  Leaves may be numpy or anything ``np.asarray``
-    takes; dtypes are kept (bfloat16 through float32).
+    ``i = rep * P + p``: the norms, ``attn``, ``mamba`` or ``rwkv``, and
+    ``ffn``, ``moe`` or both (arctic).  Leaves may be numpy or anything
+    ``np.asarray`` takes; dtypes are kept (bfloat16 through float32).
     """
 
     state = {"embed": _tensor(tree["embed"]), "final_norm": _tensor(tree["final_norm"]["w"])}
@@ -125,14 +126,15 @@ def lm_params_from_reference(tree: dict) -> dict:
         blk = tree["blocks"][f"pos{p}"]
         n_rep = np.asarray(blk["norm1"]["w"]).shape[0]
         leaves = {"norm1": blk["norm1"]["w"], "norm2": blk["norm2"]["w"]}
-        if "rwkv" in blk:  # the channel-mix weights are among the rwkv leaves
-            leaves.update({f"rwkv.{k}": w for k, w in blk["rwkv"].items()})
-        else:
+        if "attn" in blk:
             leaves.update({f"attn.{k}": blk["attn"][k] for k in ("wq", "wk", "wv", "wo")})
             for k in ("q_norm", "k_norm"):
                 if k in blk["attn"]:
                     leaves[f"attn.{k}"] = blk["attn"][k]["w"]
-            leaves.update({f"ffn.{k}": w for k, w in blk["ffn"].items()})
+        # rwkv holds the channel-mix weights too; arctic's ffn sits beside moe
+        for sub in ("rwkv", "mamba", "moe", "ffn"):
+            if sub in blk:
+                leaves.update({f"{sub}.{k}": w for k, w in blk[sub].items()})
         for name, stacked in leaves.items():
             stacked = np.asarray(stacked)
             for rep in range(n_rep):

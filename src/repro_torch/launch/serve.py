@@ -5,9 +5,12 @@ and SLO-aware batch sizing driven by the paper's config->time model: the
 server profiles decode latency at a few batch sizes, fits the regression
 (degree 2), and picks the largest batch whose *predicted* per-token
 latency meets the SLO.  Attention runs through the hand-written kernels
-(``StepConfig(use_flash=True)``).
+(``StepConfig(use_flash=True)``); Mamba layers carry their recurrent
+state and conv tail in the decode state, MoE layers route each call's
+tokens with the capacity of that call.
 
     PYTHONPATH=src python -m repro_torch.launch.serve                  # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --requests 4
 """
 

@@ -6,6 +6,13 @@ Usable as a module (``run_training``) or as a command::
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --steps 50 --batch 8 --seq 512 --ckpt-dir build/train_ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
+        --steps 10 --batch 8 --seq 512
+
+An MoE config trains through the same step: its loss, the reported
+``loss`` metric included, carries ``router_aux_weight`` times the layers'
+summed Switch aux.  Mamba configs train too (jamba-v0.1-52b at its smoke
+config: its optimizer state fits no card).
 
 Fault tolerance:
 

@@ -51,7 +51,6 @@ class Attention(nn.Module):
 
     def __init__(self, cfg, dtype, device, generator: torch.Generator | None = None):
         super().__init__()
-        self.cfg = cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
         shapes = {"wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
                   "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
@@ -62,9 +61,10 @@ class Attention(nn.Module):
             self.q_norm = nn.Parameter(torch.ones(hd, dtype=dtype, device=device))
             self.k_norm = nn.Parameter(torch.ones(hd, dtype=dtype, device=device))
 
-    def forward(self, x, *, cache=None, cache_index: int | None = None,
+    def forward(self, x, *, cfg, cache=None, cache_index: int | None = None,
                 use_flash: bool = False):
-        """x (B, S, D).  Without a cache: full self-attention (causal per cfg).
+        """x (B, S, D).  ``cfg`` sets the compute (its shapes are the
+        module's).  Without a cache: full self-attention (causal per cfg).
 
         With ``cache = (k, v)``, each (B, S_max, n_kv, hd), and the host int
         ``cache_index``: writes the S new entries at ``cache_index`` (in
@@ -72,7 +72,6 @@ class Attention(nn.Module):
         does) and attends over the first ``cache_index + S`` slots.
         Returns (out, cache).
         """
-        cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.resolved_head_dim
         cdt = getattr(torch, cfg.compute_dtype)

@@ -1,19 +1,29 @@
-"""The decoder LM: attention and RWKV blocks over token input.
+"""The decoder LM: attention, Mamba and RWKV blocks over token input.
 
-Counterpart of ``repro.models.transformer`` for ``"attn"`` blocks with a
-dense FFN and ``"rwkv"`` blocks (time-mix and channel-mix), on token
-input.  The reference stacks each in-period position's parameters over
-repeats and scans them; here the blocks are an ``nn.ModuleList`` in layer
-order (layer ``i = rep * P + p``) and a Python loop runs them.  Mamba
-blocks, MoE and embedding/VLM input raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Counterpart of ``repro.models.transformer`` on token input:
 
-The weights are trainable parameters: ``forward`` and ``loss_fn`` run
+* ``"attn"``: norm -> GQA attention -> residual, then the FFN sub-block;
+* ``"mamba"``: norm -> selective SSM -> residual, then the FFN sub-block;
+* ``"rwkv"``: norm -> time-mix -> residual, norm -> channel-mix -> residual.
+
+The FFN sub-block is a dense FFN, or on the layers ``cfg.is_moe_layer``
+names an MoE FFN (``models.moe.moe_ffn_grouped``), with arctic's dense FFN
+of width ``d_ff_dense`` in parallel when ``dense_residual`` is set; the MoE
+layers' Switch aux losses are summed over the layers.  The reference
+stacks each in-period position's parameters over repeats and scans them;
+here the blocks are an ``nn.ModuleList`` in layer order (layer
+``i = rep * P + p``) and a Python loop runs them.  Embedding/VLM input
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+
+The config passed to ``forward``, ``loss_fn`` and ``decode_step`` sets the
+computation (the compute dtype, the MoE capacity factor); the one a
+model was built with sets its shapes.  The weights are trainable
+parameters: ``forward`` and ``loss_fn`` run
 under autograd when the caller has it on (the train step), with ``remat``
 as the reference's; ``decode_step`` and ``prefill`` never record a graph.
 The decode state keeps its write position as a host int, so a step never
-reads the device; attention caches are updated in place, RWKV states
-replaced by each call's new state.
+reads the device; attention caches are updated in place, RWKV and Mamba
+states replaced by each call's new state.
 """
 
 from __future__ import annotations
@@ -40,34 +50,53 @@ from repro_torch.models.layers import (
     ffn_shapes,
     rmsnorm,
 )
-from repro_torch.models.ssm import RWKV, rwkv_channel_mix, rwkv_state_init, rwkv_time_mix
+from repro_torch.models.moe import MoE, moe_ffn_grouped
+from repro_torch.models.ssm import (
+    RWKV,
+    Mamba,
+    mamba_block,
+    mamba_state_init,
+    rwkv_channel_mix,
+    rwkv_state_init,
+    rwkv_time_mix,
+)
 
 #: ROADMAP.md, queue 1, item 10: the parts of the LM stack still to port
 _NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 10: {})"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not port."""
-    kinds = set(cfg.block_pattern)
-    if kinds - {"attn", "rwkv"}:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds - {'attn', 'rwkv'})} "
-            + _NOT_PORTED.format("mamba"))
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE " + _NOT_PORTED.format("MoE"))
+    """Raise for what this slice does not port: embedding/VLM input."""
+    unknown = set(cfg.block_pattern) - {"attn", "mamba", "rwkv"}
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
     if cfg.input_kind != "tokens" or cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.input_kind}/{cfg.family} input "
             + _NOT_PORTED.format("VLM and audio inputs"))
 
 
-class FFN(nn.Module):
-    """Dense FFN of ``cfg.ffn_type``; weights (d_in, d_out)."""
+def _moe_positions_valid(cfg: ModelConfig) -> None:
+    """MoE placement must repeat with the block pattern (the reference's
+    scan requirement, kept so that both packages accept the same configs)."""
+    if cfg.moe is None:
+        return
+    if cfg.moe.every_n_layers > 1 and cfg.pattern_period % cfg.moe.every_n_layers:
+        raise ValueError(
+            f"{cfg.name}: pattern period {cfg.pattern_period} must be a multiple of "
+            f"moe.every_n_layers={cfg.moe.every_n_layers} so MoE placement is "
+            f"repeat-invariant (scan requirement)")
 
-    def __init__(self, cfg, dtype, device, generator=None):
+
+class FFN(nn.Module):
+    """Dense FFN of ``cfg.ffn_type`` and width ``d_ff`` (``cfg.d_ff`` by
+    default); weights (d_in, d_out)."""
+
+    def __init__(self, cfg, dtype, device, generator=None, d_ff: int | None = None):
         super().__init__()
         self.ffn_type = cfg.ffn_type
-        for name, (d_in, d_out) in ffn_shapes(cfg.d_model, cfg.d_ff, cfg.ffn_type).items():
+        shapes = ffn_shapes(cfg.d_model, d_ff or cfg.d_ff, cfg.ffn_type)
+        for name, (d_in, d_out) in shapes.items():
             w = dense_weight(generator, d_in, d_out, dtype, device)
             self.register_parameter(name, nn.Parameter(w))
 
@@ -75,58 +104,98 @@ class FFN(nn.Module):
         return ffn_apply(x, dict(self.named_parameters()), self.ffn_type, compute_dtype)
 
 
-class Block(nn.Module):
-    """norm -> attention -> residual, norm -> FFN -> residual."""
+class _FFNBlock(nn.Module):
+    """A block whose second half is norm -> FFN sub-block -> residual: a
+    dense FFN, or on an MoE layer the MoE FFN (and arctic's parallel dense
+    FFN of width ``d_ff_dense``)."""
 
-    def __init__(self, cfg, dtype, device, generator=None):
-        super().__init__()
-        self.cfg = cfg
-        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
-        self.norm1 = ones()
-        self.attn = Attention(cfg, dtype, device, generator)
-        self.norm2 = ones()
-        self.ffn = FFN(cfg, dtype, device, generator)
+    def _init_ffn(self, cfg, layer: int, dtype, device, generator):
+        self.norm2 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.moe = None
+        if cfg.is_moe_layer(layer % cfg.pattern_period):
+            self.moe = MoE(cfg, dtype, device, generator)
+            if cfg.moe.dense_residual and cfg.moe.d_ff_dense:
+                self.ffn = FFN(cfg, dtype, device, generator, d_ff=cfg.moe.d_ff_dense)
+        else:
+            self.ffn = FFN(cfg, dtype, device, generator)
 
-    def forward(self, x, cache=None, *, pos=0, use_flash=False, wkv_kernel=True):
-        """Returns (x, cache); ``cache`` (k, v) is written in place at ``pos``.
-        ``wkv_kernel`` is the RWKV block's, unused here."""
-        cfg = self.cfg
+    def _ffn(self, x, cfg):
+        """x -> (x + the sub-block's output, aux: the MoE's or None)."""
         cdt = getattr(torch, cfg.compute_dtype)
+        h = rmsnorm(x, self.norm2, cfg.norm_eps)
+        if self.moe is None:
+            return x + self.ffn(h, cdt).to(x.dtype), None
+        y, aux = moe_ffn_grouped(h, dict(self.moe.named_parameters()), cfg, cdt)
+        if hasattr(self, "ffn"):
+            # The reference's compiled block adds the two branches unrounded.
+            y = y.float() + self.ffn(h, cdt).float()
+        return x + y.to(x.dtype), aux
+
+
+class Block(_FFNBlock):
+    """norm -> attention -> residual, then the FFN sub-block."""
+
+    def __init__(self, cfg, dtype, device, generator=None, layer: int = 0):
+        super().__init__()
+        self.norm1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.attn = Attention(cfg, dtype, device, generator)
+        self._init_ffn(cfg, layer, dtype, device, generator)
+
+    def forward(self, x, cache=None, *, cfg, pos=0, use_flash=False, wkv_kernel=True):
+        """Returns (x, cache, aux); ``cache`` (k, v) is written in place at
+        ``pos``.  ``wkv_kernel`` is the RWKV block's, unused here."""
         h = rmsnorm(x, self.norm1, cfg.norm_eps)
         y, cache = self.attn(h, cache=cache, cache_index=None if cache is None else pos,
-                             use_flash=use_flash)
-        x = x + y.to(x.dtype)
-        h = rmsnorm(x, self.norm2, cfg.norm_eps)
-        x = x + self.ffn(h, cdt).to(x.dtype)
-        return x, cache
+                             use_flash=use_flash, cfg=cfg)
+        x, aux = self._ffn(x + y.to(x.dtype), cfg)
+        return x, cache, aux
+
+
+class MambaBlock(_FFNBlock):
+    """norm -> Mamba -> residual, then the FFN sub-block."""
+
+    def __init__(self, cfg, dtype, device, generator=None, layer: int = 0):
+        super().__init__()
+        self.norm1 = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
+        self.mamba = Mamba(cfg, dtype, device, generator)
+        self._init_ffn(cfg, layer, dtype, device, generator)
+
+    def forward(self, x, state: dict | None = None, *, cfg, pos=0, use_flash=False,
+                wkv_kernel=True):
+        """Returns (x, new state, aux); without a state, from a zero float32
+        one.  ``pos``, ``use_flash`` and ``wkv_kernel`` are the other
+        blocks'."""
+        if state is None:
+            state = mamba_state_init(cfg, x.shape[0], device=x.device)
+        y, state = mamba_block(rmsnorm(x, self.norm1, cfg.norm_eps), self.mamba, cfg, state)
+        x, aux = self._ffn(x + y.to(x.dtype), cfg)
+        return x, state, aux
 
 
 class RWKVBlock(nn.Module):
     """norm -> time-mix -> residual, norm -> channel-mix -> residual; the
     channel-mix weights live in the ``rwkv`` parameters, as in the reference."""
 
-    def __init__(self, cfg, dtype, device, generator=None):
+    def __init__(self, cfg, dtype, device, generator=None, layer: int = 0):
         super().__init__()
-        self.cfg = cfg
         ones = lambda: nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
         self.norm1 = ones()
         self.rwkv = RWKV(cfg, dtype, device, generator)
         self.norm2 = ones()
 
-    def forward(self, x, state: dict | None = None, *, pos=0, use_flash=False,
+    def forward(self, x, state: dict | None = None, *, cfg, pos=0, use_flash=False,
                 wkv_kernel=True):
-        """Returns (x, new state); without a state, from a zero float32 one.
-        ``wkv_kernel=False`` runs the recurrence's plain chunked form (the
-        training route); ``pos`` and ``use_flash`` are the attention
-        block's, unused here."""
-        cfg = self.cfg
+        """Returns (x, new state, None: no aux); without a state, from a zero
+        float32 one.  ``wkv_kernel=False`` runs the recurrence's plain
+        chunked form (the training route); ``pos`` and ``use_flash`` are the
+        attention block's, unused here."""
         if state is None:
             state = rwkv_state_init(cfg, x.shape[0], device=x.device)
         y, state = rwkv_time_mix(rmsnorm(x, self.norm1, cfg.norm_eps), self.rwkv, cfg, state,
                                  wkv_kernel=wkv_kernel)
         x = x + y.to(x.dtype)
         y, state = rwkv_channel_mix(rmsnorm(x, self.norm2, cfg.norm_eps), self.rwkv, cfg, state)
-        return x + y.to(x.dtype), state
+        return x + y.to(x.dtype), state, None
 
 
 class Transformer(nn.Module):
@@ -141,13 +210,14 @@ class Transformer(nn.Module):
                  device="cuda"):
         super().__init__()
         check_supported(cfg)
+        _moe_positions_valid(cfg)
         dev = resolve_device(device if generator is None else generator.device)
         dtype = getattr(torch, cfg.param_dtype)
         self.cfg = cfg
-        kinds = {"attn": Block, "rwkv": RWKVBlock}
+        kinds = {"attn": Block, "mamba": MambaBlock, "rwkv": RWKVBlock}
         self.blocks = nn.ModuleList(
-            kinds[cfg.block_pattern[i % cfg.pattern_period]](cfg, dtype, dev, generator)
-            for i in range(cfg.n_layers))
+            kinds[kind](cfg, dtype, dev, generator, layer=i)
+            for i, kind in enumerate(cfg.layer_kinds()))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=dev))
         if generator is not None:
             embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=generator,
@@ -210,31 +280,35 @@ def _rematted(fn, remat: str):
     raise ValueError(f"remat must be none, dots or full, got {remat!r}")
 
 
-def _run_blocks(model, x, *, state=None, use_flash=False, remat="none", wkv_kernel=True):
+def _run_blocks(model, cfg, x, *, state=None, use_flash=False, remat="none", wkv_kernel=True):
     """The blocks in layer order, each with its own entry of ``state``;
     ``use_flash`` selects the attention kernels, ``wkv_kernel`` the WKV6
     kernel of the RWKV blocks (the reference ignores ``use_flash`` there).
     Without a state each block runs under ``remat``, as the reference remats
-    each period group."""
+    each period group.  Returns (x, the MoE layers' aux summed, float32)."""
+    aux = torch.zeros((), device=x.device)
     for i, block in enumerate(model.blocks):
         if state is None:
-            run = functools.partial(block, use_flash=use_flash, wkv_kernel=wkv_kernel)
-            x = _rematted(lambda h, run=run: run(h)[0], remat)(x)
+            run = functools.partial(block, cfg=cfg, use_flash=use_flash, wkv_kernel=wkv_kernel)
+            x, a = _rematted(lambda h, run=run: run(h)[::2], remat)(x)
         else:
-            x, state.layers[i] = block(x, state.layers[i], pos=state.pos, use_flash=use_flash,
-                                       wkv_kernel=wkv_kernel)
-    return x
+            x, state.layers[i], a = block(x, state.layers[i], cfg=cfg, pos=state.pos,
+                                          use_flash=use_flash, wkv_kernel=wkv_kernel)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=False,
             remat="none", wkv_kernel=True, return_hidden=False):
-    """Full forward -> (logits (B, S, V), aux), or (hidden, aux); aux is 0
-    (no MoE yet).  Records a graph when autograd is on; the train step
-    passes ``wkv_kernel=False`` (the kernels have no backward)."""
+    """Full forward -> (logits (B, S, V), aux), or (hidden, aux); aux is
+    the MoE layers' Switch losses summed (0 without MoE).  Records a graph
+    when autograd is on; the train step passes ``wkv_kernel=False`` (the
+    kernels have no backward)."""
     x = embed_inputs(model, cfg, batch)
-    x = _run_blocks(model, x, use_flash=use_flash, remat=remat, wkv_kernel=wkv_kernel)
+    x, aux = _run_blocks(model, cfg, x, use_flash=use_flash, remat=remat,
+                         wkv_kernel=wkv_kernel)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
-    aux = torch.zeros((), device=x.device)
     if return_hidden:
         return x, aux
     return unembed(model, cfg, x), aux
@@ -242,35 +316,40 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=Fals
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=False,
             remat="none", wkv_kernel=True, logits_chunk: int = 0) -> torch.Tensor:
-    """Next-token LM loss; ``logits_chunk > 0`` computes logits and the loss
-    in sequence chunks of that size (never the full (B, S, V) logits)."""
+    """Next-token LM loss, plus ``router_aux_weight`` times the summed aux
+    with MoE; ``logits_chunk > 0`` computes logits and the loss in
+    sequence chunks of that size (never the full (B, S, V) logits)."""
     if not cfg.causal:
         raise NotImplementedError(
             f"{cfg.name}: encoder loss " + _NOT_PORTED.format("VLM and audio inputs"))
-    h, _ = forward(model, cfg, batch, use_flash=use_flash, remat=remat, wkv_kernel=wkv_kernel,
-                   return_hidden=True)
+    h, aux = forward(model, cfg, batch, use_flash=use_flash, remat=remat,
+                     wkv_kernel=wkv_kernel, return_hidden=True)
     labels = batch["tokens"][:, 1:].long()
     h = h[:, :-1]
     S = h.shape[1]
     if not (logits_chunk and S > logits_chunk):
-        return cross_entropy_loss(unembed(model, cfg, h), labels)
-    total = torch.zeros((), device=h.device)
-    count = torch.zeros((), dtype=torch.int64, device=h.device)
-    for s0 in range(0, S, logits_chunk):
-        lc = labels[:, s0:s0 + logits_chunk]
-        n = (lc != -100).sum()
-        total = total + cross_entropy_loss(unembed(model, cfg, h[:, s0:s0 + logits_chunk]),
-                                           lc) * torch.clamp(n, min=1)
-        count = count + n
-    return total / torch.clamp(count, min=1)
+        loss = cross_entropy_loss(unembed(model, cfg, h), labels)
+    else:
+        total = torch.zeros((), device=h.device)
+        count = torch.zeros((), dtype=torch.int64, device=h.device)
+        for s0 in range(0, S, logits_chunk):
+            lc = labels[:, s0:s0 + logits_chunk]
+            n = (lc != -100).sum()
+            total = total + cross_entropy_loss(
+                unembed(model, cfg, h[:, s0:s0 + logits_chunk]), lc) * torch.clamp(n, min=1)
+            count = count + n
+        loss = total / torch.clamp(count, min=1)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+    return loss
 
 
 @dataclasses.dataclass
 class DecodeState:
     """Per layer, that block's state: the attention block's (k, v) cache,
-    each (B, max_len, n_kv, hd), or the RWKV block's state
-    (``ssm.rwkv_state_init``); and the write position ``pos`` (a host int;
-    tokens appended so far)."""
+    each (B, max_len, n_kv, hd), the Mamba block's (``ssm.mamba_state_init``)
+    or the RWKV block's (``ssm.rwkv_state_init``); and the write position
+    ``pos`` (a host int; tokens appended so far)."""
 
     layers: list
     pos: int = 0
@@ -278,10 +357,12 @@ class DecodeState:
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       cache_dtype=torch.bfloat16, device="cuda") -> DecodeState:
-    """Zero caches and states; RWKV's carried tokens in ``cache_dtype``."""
+    """Zero caches and states; RWKV's carried tokens and Mamba's conv tail
+    in ``cache_dtype``, their recurrent states in float32."""
     check_supported(cfg)
     dev = resolve_device(device)
     init = {"attn": lambda: init_cache(cfg, batch, max_len, cache_dtype, dev),
+            "mamba": lambda: mamba_state_init(cfg, batch, cache_dtype, dev),
             "rwkv": lambda: rwkv_state_init(cfg, batch, cache_dtype, dev)}
     return DecodeState([init[cfg.block_pattern[i % cfg.pattern_period]]()
                         for i in range(cfg.n_layers)])
@@ -292,11 +373,11 @@ def decode_step(model: Transformer, cfg: ModelConfig, state: DecodeState, batch:
                 use_flash=False):
     """Append S new tokens (S = 1 to decode) -> (logits (B, S, V), state).
 
-    The caches are written in place and the RWKV states replaced; the
-    returned state is ``state`` with ``pos`` advanced by S.
+    The caches are written in place and the RWKV and Mamba states replaced;
+    the returned state is ``state`` with ``pos`` advanced by S.
     """
     x = embed_inputs(model, cfg, batch)
-    x = _run_blocks(model, x, state=state, use_flash=use_flash)
+    x, _ = _run_blocks(model, cfg, x, state=state, use_flash=use_flash)
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = unembed(model, cfg, x)
     state.pos += x.shape[1]
@@ -313,7 +394,7 @@ def prefill(model: Transformer, cfg: ModelConfig, batch: dict, max_len: int, *,
 
 
 __all__ = [
-    "Transformer", "Block", "RWKVBlock", "FFN", "DecodeState", "check_supported", "init_params",
+    "Transformer", "Block", "MambaBlock", "RWKVBlock", "FFN", "DecodeState", "check_supported", "init_params",
     "embed_inputs", "unembed", "forward", "loss_fn", "init_decode_state",
     "decode_step", "prefill",
 ]

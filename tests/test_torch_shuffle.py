@@ -14,6 +14,7 @@ comparison is bit for bit (the engine is integer-valued), counters equal
 
 import dataclasses
 import datetime
+import fcntl
 import functools
 import os
 import pathlib
@@ -231,8 +232,8 @@ def test_sharded_refuses_a_group_of_another_size(world1):
         pplan.sharded(world1)
 
 
-_RANK_SCRIPT = r'''
-import datetime, sys
+_RANK_SCRIPT = r"""
+import datetime, sys, time
 import torch
 import torch.distributed as dist
 
@@ -240,16 +241,18 @@ sys.path.insert(0, sys.argv[3])
 import repro_torch.mapreduce as port
 from repro_torch.telemetry import PhaseRecorder
 
+t0 = time.perf_counter()
 rank, init = int(sys.argv[1]), sys.argv[2]
 dist.init_process_group("gloo", init_method=init, rank=rank, world_size=4,
                         timeout=datetime.timedelta(seconds=60))
-pair = dist.new_group([0, 1])  # every rank takes part in making it
+# Every rank takes part in making both pairs; then ranks 0-1 and 2-3 run
+# the W = 2 cases at once, each pair on its own group (on 2-3 the group's
+# rank is not the global one), and all four run the W = 4 cases together.
+pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
 corpus = port.wordcount_corpus(900, vocab_size=53, seed=9)
 skew = torch.zeros(600, dtype=torch.int32)
 cases = 0
-for W, group in ((2, pair), (4, None)):
-    if rank >= W:
-        continue
+for W, group in ((2, pairs[rank // 2]), (4, None)):
     for corpus_, app, f in ((corpus, port.wordcount(53), 8.0),
                             (skew, port.wordcount(16), 1.0)):
         for combiner in (False, True):
@@ -272,30 +275,53 @@ for W, group in ((2, pair), (4, None)):
                 cases += 1
 dist.barrier()
 dist.destroy_process_group()
-print(f"rank {rank}: {cases} cases", flush=True)
-'''
+print(f"rank {rank}: {cases} cases in {time.perf_counter() - t0:.1f} s", flush=True)
+"""
 
 
-def test_sharded_w2_w4_gloo_ranks_match_emulated(tmp_path):
-    """Four gloo ranks, each its own process (CPU tensors): W = 2 on a
-    group of ranks 0-1 and W = 4 on the world, both corpora (the one-key
-    one overflows), combiner on and off, against the port's emulated mode
-    at the same W, outputs and ``dropped`` bit for bit."""
-    script = tmp_path / "rank.py"
-    script.write_text(_RANK_SCRIPT)
-    init = f"file://{tmp_path / 'pg'}"
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), init, str(SRC)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, env=env)
-             for r in range(4)]
+@pytest.fixture
+def rank_processes_alone(tmp_path_factory):
+    """A lock shared by the test workers of one session (their base
+    directory's parent), held by every test that starts gloo rank
+    processes, so no two such tests' ranks compete for the cores."""
+    with open(tmp_path_factory.getbasetemp().parent / "gloo_ranks.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
+def run_ranks(argvs, env, timeout=240) -> list[str]:
+    """Start one process per argv together; each rank's merged output.
+    Fails with every rank's output if one is still running after
+    ``timeout`` seconds."""
+    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for argv in argvs]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=240)[0])
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        outs += [p.communicate()[0] for p in procs[len(outs):]]
+        pytest.fail(f"rank processes still running after {timeout} s:\n" + "\n".join(outs))
     finally:
         for p in procs:
             p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, out
-        assert f"rank {r}: {16 if r < 2 else 8} cases" in out, out
+    assert all(p.returncode == 0 for p in procs), "\n".join(outs)
+    return outs
+
+
+def test_sharded_w2_w4_gloo_ranks_match_emulated(tmp_path, rank_processes_alone):
+    """Four gloo ranks, each its own process (CPU tensors), every rank
+    running the same cases in step: W = 2 on the groups of ranks 0-1 and
+    2-3 at once, then W = 4 on the world; both corpora (the one-key one
+    overflows), combiner on and off, both reduce backends, fused, sharded
+    and traced, against the port's emulated mode at the same W, outputs
+    and ``dropped`` bit for bit."""
+    script = tmp_path / "rank.py"
+    script.write_text(_RANK_SCRIPT)
+    init = f"file://{tmp_path / 'pg'}"
+    outs = run_ranks([[sys.executable, str(script), str(r), init, str(SRC)] for r in range(4)],
+                     {**os.environ, "OMP_NUM_THREADS": "1"})
+    for r, out in enumerate(outs):
+        assert f"rank {r}: 16 cases" in out, out

@@ -28,7 +28,6 @@ import dataclasses
 import datetime
 import functools
 import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -63,6 +62,7 @@ from repro_torch.launch.train import TrainLoopConfig, run_training
 from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamWConfig, apply_updates, grad_compress, init_state
 from repro_torch.train import StepConfig, build_compressed_dp_train_step, build_train_step
+from test_torch_shuffle import rank_processes_alone, run_ranks  # noqa: F401  (a fixture)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 #: per-leaf relative tolerance (of the leaf's largest value): float32
@@ -483,7 +483,7 @@ def _single_process_compressed(tokens, world):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-def test_compressed_dp_gloo_ranks_match_single_process(world, tmp_path):
+def test_compressed_dp_gloo_ranks_match_single_process(world, tmp_path, rank_processes_alone):
     """W gloo ranks, each its own process, three steps on slices of one
     global batch, against ``_single_process_compressed`` (one thread on both
     sides, so the float32 gradients, and so the int8 roundings, agree)."""
@@ -493,20 +493,9 @@ def test_compressed_dp_gloo_ranks_match_single_process(world, tmp_path):
     script.write_text(_RANK_SCRIPT)
     init = f"file://{tmp_path / 'pg'}"
     out = str(tmp_path / "out")
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(world), init, str(SRC),
-                               out, str(tmp_path / "tokens.npy")],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-             for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, text
+    run_ranks([[sys.executable, str(script), str(r), str(world), init, str(SRC), out,
+                str(tmp_path / "tokens.npy")] for r in range(world)],
+              {**os.environ, "OMP_NUM_THREADS": "1"})
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
