@@ -15,9 +15,11 @@ Phases, one or more printed lines each, in run order:
    (all-PAD, one key, a run across many tiles, sums above 2**24), with its
    time, the plain version's time and its memory bound;
 3. attention: the two attention kernels against their plain versions on
-   the card at the qwen3-0.6b serving shapes and gemma-7b's head_dim 256
+   the card at the qwen3-0.6b serving shapes, gemma-7b's head_dim 256
    shapes (decode over a ragged kv_len split into 64-key tiles, the
-   long-prompt prefill, flash causal and non-causal with Sk > Sq), bfloat16
+   long-prompt prefill, flash causal and non-causal with Sk > Sq),
+   granite's head_dim 64 shapes, internvl2-26b's G = 6 shapes (prefill,
+   decode, scoring) and hubert-xlarge's non-causal head_dim 80 encode, bfloat16
    and float32, and on edge cases (garbage past kv_len, kv_len past the
    cache, a ragged sequence, non-causal with Sk > Sq), elementwise and row
    by row relative to each row's scale, with proof at each bfloat16 shape
@@ -163,7 +165,25 @@ Phases, one or more printed lines each, in run order:
    is printed), each attention call held against its plain version and
    each Mamba decode step (one recurrence step) against the plain chunked
    scan of the same inputs padded to a 256-step chunk, one attention
-   launch a call.
+   launch a call;
+20. internvl (after jamba): internvl2-26b at full width and depth (48
+   layers, 48 / 8 heads of 128, so G = 6; 39.8 GB of bf16 weights)
+   through the step builders: 8 prompts of 256 patch embeddings and 2048
+   text tokens into a 4096-slot cache, 32 greedy new tokens with an empty
+   patch prefix; phase 13's kernel-path checks on 256 patches + 24
+   tokens (its float32 upcast on the first 4 layers) and text-only
+   scoring of 256 + 2048 positions; phase 3 holds both kernels at its
+   G = 6 shapes;
+21. hubert (after granite's training): hubert-xlarge at full width and
+   depth (48 layers, 16 heads of 80, non-causal): 8 x 2048 frames encoded
+   through the encoder's prefill step, each ``flash_attention`` call held
+   against its plain version, the logits against the plain versions'
+   path and the plain path, the per-frame loss with about 10 % of labels
+   at -100, kernels against plain; 10 train steps at 8 x 512 on the plain
+   routes, the loss falling on labels that are a fixed function of the
+   frames; a 2-layer float32 cut's gradient per group against central
+   differences, a zeroed attention gradient rejected; phase 3 holds
+   ``flash_attention`` at its head_dim 80 shape.
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -1132,6 +1152,8 @@ ATTN_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 QWEN = dict(Hq=16, n_kv=8, hd=128)  # qwen3-0.6b attention geometry
 GEMMA = dict(Hq=16, n_kv=16, hd=256)  # gemma-7b's: MHA, head_dim 256
 GRANITE = dict(Hq=16, n_kv=8, hd=64)  # granite-moe-1b-a400m's: head_dim 64
+INTERNVL = dict(Hq=48, n_kv=8, hd=128)  # internvl2-26b's: G = 6
+HUBERT = dict(Hq=16, n_kv=16, hd=80)  # hubert-xlarge's: head_dim 80, non-causal
 
 
 def attention_bound(B, Sq, Hq, n_kv, hd, Sk, visible, itemsize=2):
@@ -1202,7 +1224,8 @@ def wrong_outputs(q, k, v, ref, want, n_visible: int) -> dict:
         n, keys = split_plan(B, Sq, Hq, k.shape[2], k.shape[1], n_visible,
                              target_blocks(q.device.index), hd)
         a = n // 2 * keys
-        keep = torch.cat([torch.arange(a), torch.arange(a + keys, n_visible)]).to(k.device)
+        keep = torch.cat([torch.arange(a), torch.arange(min(a + keys, n_visible), n_visible)])
+        keep = keep.to(k.device)
         wrongs[f"split {n // 2} of {n} dropped"] = decode_attention_ref(
             q, k[:, keep], v[:, keep], len(keep))
     else:
@@ -1347,6 +1370,49 @@ def phase_attention() -> dict:
              enable_gqa=True),
          attention_bound(1, S_pre, rH, rkv, rhd, S_pre, S_pre * (S_pre + 1) // 2)),
     ]
+    # internvl2-26b's heads (48 / 8 of 128, so G = 6 query heads a KV head):
+    # its scoring of 256 patches + 2048 tokens, its prefill of 8 such
+    # prompts into a 4096-slot cache and a decode step past them; and
+    # hubert-xlarge's (16 of 80, the hd <= 128 instance with zeros past
+    # 80): its non-causal encode of 8 x 2048 frames.
+    vH, vkv, vhd = INTERNVL["Hq"], INTERNVL["n_kv"], INTERNVL["hd"]
+    hH, hkv, hhd = HUBERT["Hq"], HUBERT["n_kv"], HUBERT["hd"]
+    S_vl, kv_vl = 256 + S_pre, 256 + S_pre + 26
+    cases += [
+        ("flash_attention", f"hubert non-causal B=8 S={S_pre} hd=80",
+         ((8, S_pre, hH, hhd), (8, S_pre, hkv, hhd)), S_pre,
+         lambda q, k, v: flash_attention(q, k, v, causal=False),
+         lambda q, k, v: flash_attention_ref(q, k, v, causal=False),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), enable_gqa=True),
+         attention_bound(8, S_pre, hH, hkv, hhd, S_pre, S_pre * S_pre)),
+        ("flash_attention", f"internvl causal B=1 S={S_vl} G=6",
+         ((1, S_vl, vH, vhd), (1, S_vl, vkv, vhd)), S_vl,
+         lambda q, k, v: flash_attention(q, k, v, causal=True),
+         lambda q, k, v: flash_attention_ref(q, k, v, causal=True),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+             enable_gqa=True),
+         attention_bound(1, S_vl, vH, vkv, vhd, S_vl, S_vl * (S_vl + 1) // 2)),
+        ("decode_attention", f"internvl prefill B=8 Sq=kv_len={S_vl} S_max={P_max} G=6",
+         ((8, S_vl, vH, vhd), (8, P_max, vkv, vhd)), S_vl,
+         lambda q, k, v: decode_attention(q, k, v, S_vl),
+         # the slots past kv_len are invisible: the plain version reads
+         # only the first S_vl (its float32 scores are then 8 GB, not 14)
+         lambda q, k, v: decode_attention_ref(q, k[:, :S_vl], v[:, :S_vl], S_vl),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k[:, :S_vl].transpose(1, 2), v[:, :S_vl].transpose(1, 2),
+             is_causal=True, enable_gqa=True),
+         attention_bound(8, S_vl, vH, vkv, vhd, S_vl, S_vl * (S_vl + 1) // 2)),
+        ("decode_attention", f"internvl decode B=8 Sq=1 kv_len={kv_vl} S_max={P_max} G=6",
+         ((8, 1, vH, vhd), (8, P_max, vkv, vhd)), kv_vl,
+         lambda q, k, v: decode_attention(q, k, v, kv_vl),
+         lambda q, k, v: decode_attention_ref(q, k, v, kv_vl),
+         lambda q, k, v: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k[:, :kv_vl].transpose(1, 2), v[:, :kv_vl].transpose(1, 2),
+             enable_gqa=True),
+         attention_bound(8, 1, vH, vkv, vhd, kv_vl, kv_vl)),
+    ]
     report = {}
     for i, (name, case, (qs, ks), n_visible, kern, ref, lib,
             (bound_ms, bound_by)) in enumerate(cases):
@@ -1428,20 +1494,28 @@ def held_against_plain(stats: dict):
             held("flash_attention", flash_attention, flash_attention_ref))
 
 
-def teacher_forced(model, cfg, tokens, n_prompt: int):
-    """Kernel-path logits at positions n_prompt - 1 .. S - 1: a prefill of
-    n_prompt tokens through decode_step, then one decode step per token,
+def lm_batch(tokens, patches=None) -> dict:
+    """A model batch of ``tokens``, after ``patches`` for a VLM."""
+    return {"tokens": tokens} if patches is None else {"tokens": tokens, "patches": patches}
+
+
+def teacher_forced(model, cfg, tokens, n_prompt: int, patches=None):
+    """Kernel-path logits at text positions n_prompt - 1 .. S - 1: a prefill
+    of n_prompt tokens (after ``patches`` for a VLM) through decode_step,
+    then one decode step per token (a VLM's with an empty patch prefix),
     with a float32 cache.  Makes 1 + S - n_prompt decode_step calls."""
     from repro_torch.models import transformer as tf
 
     B, S = tokens.shape
-    state = tf.init_decode_state(cfg, B, S, cache_dtype=torch.float32,
+    P = 0 if patches is None else patches.shape[1]
+    empty = None if patches is None else patches[:, :0]
+    state = tf.init_decode_state(cfg, B, P + S, cache_dtype=torch.float32,
                                  device=tokens.device)
-    logits, state = tf.decode_step(model, cfg, state, {"tokens": tokens[:, :n_prompt]},
+    logits, state = tf.decode_step(model, cfg, state, lm_batch(tokens[:, :n_prompt], patches),
                                    use_flash=True)
     out = [logits[:, -1]]
     for i in range(n_prompt, S):
-        logits, state = tf.decode_step(model, cfg, state, {"tokens": tokens[:, i:i + 1]},
+        logits, state = tf.decode_step(model, cfg, state, lm_batch(tokens[:, i:i + 1], empty),
                                        use_flash=True)
         out.append(logits[:, 0])
     return torch.stack(out, dim=1)
@@ -1466,10 +1540,8 @@ def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import transformer as tf
-    from repro_torch.train import StepConfig, build_eval_step
 
     cfg = get_config(arch)
-    V = cfg.vocab_size
     decode_attention.launches = 0
     flash_attention.launches = 0
     steps = forwards = 0  # decode_step and forward calls of the kernel path
@@ -1544,47 +1616,91 @@ def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32
 
     if cfg.moe is not None:
         moe_drops(model, cfg, tag)
-    # The kernel path on a 24-token prompt: forward, and prefill + decode
-    # steps through decode_step, every kernel call held against its plain
-    # version on the same inputs.  An MoE model's capacity depends on the
-    # tokens of the call, so there decode and forward drop different slots
-    # at the production capacity factor: these comparisons run at E / K,
-    # where nothing drops (``moe_drops`` holds the dropping).  Then the 28-layer logits against the same
-    # path with the plain versions (float32 scores and p, as the kernels);
-    # against the plain versions with the softmax scale moved by 2^-20, the
-    # floor to which the bf16 model amplifies any sub-ulp difference; and
-    # against the plain path (use_flash=False: _sdpa rounds the scores and p
-    # to bf16).
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device="cuda")
+    checks = check_kernel_path(model, cfg, tag, tokens)
+    seq = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    forwards += check_scoring(model, cfg, tag, {"tokens": seq})
+    launches = path_launches(tag, cfg, steps, forwards, checks)
+    serve_breakdown(server)
+    return launches
+
+
+def path_launches(tag: str, cfg, steps: int, forwards: int, checks: dict) -> dict:
+    """The attention launches counted since the path's start, held against
+    one a layer for each of its ``steps`` decode_step and ``forwards``
+    forward calls plus the ``checks`` launches of ``check_kernel_path``."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    L = cfg.n_layers
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    want = {"decode_attention": L * steps + checks["decode_attention"],
+            "flash_attention": L * forwards + checks["flash_attention"]}
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, want {want} ({L} per call: {steps} "
+                             f"decode_step, {forwards} forward calls; {checks} in the "
+                             f"kernel-path checks)")
+    log("launches", f"{tag} path ({cfg.name}): decode_attention "
+        f"{launches['decode_attention']} ({L} x {steps} decode_step calls + "
+        f"{checks['decode_attention']} in the kernel-path checks), flash_attention "
+        f"{launches['flash_attention']} ({L} x {forwards} forward calls + "
+        f"{checks['flash_attention']})")
+    return launches
+
+
+def check_kernel_path(model, cfg, tag: str, tokens, patches=None,
+                      f32_layers: int | None = None) -> dict:
+    """The kernel path on a prompt of 24 tokens (after ``patches`` for a
+    VLM); returns the attention launches it made (one forward and 9
+    decode_step calls at full depth and on the float32 cut).
+
+    Forward, and prefill + decode steps through decode_step, every kernel
+    call held against its plain version on the same inputs.  An MoE
+    model's capacity depends on the tokens of the call, so there decode
+    and forward drop different slots at the production capacity factor:
+    these comparisons run at E / K, where nothing drops (``moe_drops``
+    holds the dropping).  Then the full-depth logits against the same path
+    with the plain versions (float32 scores and p, as the kernels); against
+    the plain versions with the softmax scale moved by 2^-20, the floor to
+    which the bf16 model amplifies any sub-ulp difference; and against the
+    plain path (use_flash=False: _sdpa rounds the scores and p to bf16);
+    then ``float32_path`` on the first ``f32_layers`` layers (all by
+    default).
+    """
     from repro_torch.kernels.decode_attention import decode_attention_ref
     from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import transformer as tf
 
     plain_versions = (decode_attention_ref, flash_attention_ref)
     nudged = (decode_attention_ref, functools.partial(
         flash_attention_ref, sm_scale=(1 + 2**-20) * cfg.resolved_head_dim**-0.5))
+
+    V = cfg.vocab_size
+    P = 0 if patches is None else patches.shape[1]
+    batch = lm_batch(tokens, patches)
     held: dict = {}
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen, device="cuda")
     ccfg = no_drop(cfg)
     with attention_swapped(*held_against_plain(held)):
-        full, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)
-        dec = teacher_forced(model, ccfg, tokens, 16)
-    forwards, steps = forwards + 1, steps + 9
+        full, _ = tf.forward(model, ccfg, batch, use_flash=True)
+        dec = teacher_forced(model, ccfg, tokens, 16, patches)
     with attention_swapped(*plain_versions):
-        full_ref, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)
-        dec_ref = teacher_forced(model, ccfg, tokens, 16)
+        full_ref, _ = tf.forward(model, ccfg, batch, use_flash=True)
+        dec_ref = teacher_forced(model, ccfg, tokens, 16, patches)
     with attention_swapped(*nudged):
         floor, floor_rel = logits_err(
-            tf.forward(model, ccfg, {"tokens": tokens}, use_flash=True)[0], full_ref, V)
-    plain, _ = tf.forward(model, ccfg, {"tokens": tokens}, use_flash=False)
+            tf.forward(model, ccfg, batch, use_flash=True)[0], full_ref, V)
+    plain, _ = tf.forward(model, ccfg, batch, use_flash=False)
     # Decode vs forward: 2e-2 (tests/test_models_smoke.py), or twice what
     # the same model gives with the kernels' plain versions where the rest
     # of the bf16 model already differs more (gemma-7b: cuBLAS takes other
     # GEMMs at 2 rows than at 48, and 28 layers amplify the roundings); the
     # float32 upcast below is held to 2e-2 without that floor.
-    err_dec, _ = logits_err(dec, full[:, 15:], V)
-    floor_dec, _ = logits_err(dec_ref, full_ref[:, 15:], V)
+    err_dec, _ = logits_err(dec, full[:, P + 15:], V)
+    floor_dec, _ = logits_err(dec_ref, full_ref[:, P + 15:], V)
     tol_dec = max(2e-2, 2 * floor_dec)
-    if not torch.allclose(dec[..., :V].float(), full[:, 15:, :V].float(), rtol=2e-2,
+    if not torch.allclose(dec[..., :V].float(), full[:, P + 15:, :V].float(), rtol=2e-2,
                           atol=tol_dec):
         raise AssertionError(f"decode_step differs from forward: max abs err {err_dec}, "
                              f"{floor_dec} with the plain versions")
@@ -1625,101 +1741,109 @@ def phase_serve(arch: str = "qwen3-0.6b", tag: str = "serve", requests: int = 32
         f"the kernels' plain versions max abs err {err_ref_plain:.3e}, relative norm "
         f"{rel_ref_plain:.3e}")
     del full, full_ref, dec, dec_ref, plain
-    float32_path(model, ccfg, tokens, tag, plain_versions)
-    forwards, steps = forwards + 1, steps + 9
+    float32_path(model, ccfg, tokens, tag, plain_versions, patches, f32_layers)
+    layers = cfg.n_layers + (f32_layers or cfg.n_layers)
+    return {"decode_attention": 9 * layers, "flash_attention": layers}
 
-    # Scoring at 2048 tokens: every kernel call held against its plain
-    # version, the logits against the plain versions' path (with its floor),
-    # and the eval loss against the plain path.
-    held.clear()
-    seq = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+
+def check_scoring(model, cfg, tag: str, batch: dict) -> int:
+    """Scoring one long sequence: every kernel call held against its plain
+    version, the logits against the plain versions' path (with its floor),
+    the eval loss against the plain path, then its time; returns the
+    forward calls of the kernel path it made."""
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import StepConfig, build_eval_step
+
+    V = cfg.vocab_size
+    S = tf.input_shape(cfg, batch)[1]
+    plain_versions = (decode_attention_ref, flash_attention_ref)
+    nudged = (decode_attention_ref, functools.partial(
+        flash_attention_ref, sm_scale=(1 + 2**-20) * cfg.resolved_head_dim**-0.5))
+    moe = cfg.moe is not None
+    held: dict = {}
+    forwards = 0
     with attention_swapped(*held_against_plain(held)):
-        got, _ = tf.forward(model, cfg, {"tokens": seq}, use_flash=True)
+        got, _ = tf.forward(model, cfg, batch, use_flash=True)
     forwards += 1
     with attention_swapped(*plain_versions):
-        want, _ = tf.forward(model, cfg, {"tokens": seq}, use_flash=True)
+        want, _ = tf.forward(model, cfg, batch, use_flash=True)
     with attention_swapped(*nudged):
         floor_long, floor_long_rel = logits_err(
-            tf.forward(model, cfg, {"tokens": seq}, use_flash=True)[0], want, V)
+            tf.forward(model, cfg, batch, use_flash=True)[0], want, V)
     err_long, rel_long = logits_err(got, want, V)
     del got, want
     n, e, r = held["flash_attention"]
     rel_long_limit = max(5e-2, 2 * floor_long_rel) if moe else 5e-2
     if not (err_long <= max(5e-2, 2 * floor_long) and rel_long <= rel_long_limit):
-        raise AssertionError(f"2048-token logits differ from the kernels' plain versions: "
+        raise AssertionError(f"{S}-token logits differ from the kernels' plain versions: "
                              f"{err_long} (relative norm {rel_long}), floor {floor_long} "
                              f"(relative norm {floor_long_rel})")
-    log(tag, f"2048-token scoring: {n} flash_attention calls vs their plain versions "
+    log(tag, f"{S}-token scoring: {n} flash_attention calls vs their plain versions "
         f"max abs err {e:.3e}, row err {r:.3e}; logits vs the plain versions' path max abs "
         f"err {err_long:.3e} (relative norm {rel_long:.3e}, tolerance {rel_long_limit:.3g}), "
         f"floor {floor_long:.3e} (relative norm {floor_long_rel:.3e})")
     loss = float(build_eval_step(cfg, StepConfig(use_flash=True, logits_chunk=512))(
-        model, {"tokens": seq}))
+        model, batch))
     forwards += 1
-    ref = float(build_eval_step(cfg, StepConfig(logits_chunk=512))(model, {"tokens": seq}))
+    ref = float(build_eval_step(cfg, StepConfig(logits_chunk=512))(model, batch))
     if not (math.isfinite(loss) and abs(loss - ref) <= 2e-2):
         raise AssertionError(f"scoring loss {loss} vs plain {ref}")
-    log(tag, f"2048-token scoring loss {loss:.5f}, plain path {ref:.5f} "
+    log(tag, f"{S}-token scoring loss {loss:.5f}, plain path {ref:.5f} "
         f"(|diff| {abs(loss - ref):.2e}, tolerance 2e-2)")
     score = build_eval_step(cfg, StepConfig(use_flash=True, logits_chunk=512))
     walls = []
     for _ in range(4):  # a warm-up, then three timed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        score(model, {"tokens": seq})
+        score(model, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     forwards += 4
-    log(tag, f"2048-token scoring time (eval step, kernel path, fenced): "
+    log(tag, f"{S}-token scoring time (eval step, kernel path, fenced): "
         f"{', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} ms")
-
-    launches = {"decode_attention": decode_attention.launches,
-                "flash_attention": flash_attention.launches}
-    want = {"decode_attention": cfg.n_layers * steps, "flash_attention": cfg.n_layers * forwards}
-    if launches != want:
-        raise AssertionError(f"{tag} launches {launches}, want {want} ({cfg.n_layers} per "
-                             f"call: {steps} decode_step, {forwards} forward calls)")
-    log("launches", f"{tag} path ({cfg.name}): decode_attention "
-        f"{launches['decode_attention']} "
-        f"({cfg.n_layers} x {steps} decode_step calls), flash_attention "
-        f"{launches['flash_attention']} ({cfg.n_layers} x {forwards} forward calls)")
-    serve_breakdown(server)
-    return launches
+    return forwards
 
 
-def float32_path(model, cfg, tokens, tag: str, plain_versions) -> None:
-    """The full-depth model with the same weights upcast to float32, where
-    no bf16 rounding is amplified: a forward and a prefill of 16 + 8
-    decode steps on the kernel path (each attention call held against its
-    plain version at the float32 tolerance), decode vs forward to 2e-2
-    (tests/test_models_smoke.py) and the kernel path against the plain
-    versions' path to 5e-2.  Makes 9 decode_step and 1 forward call of
-    the kernel path."""
+def float32_path(model, cfg, tokens, tag: str, plain_versions, patches=None,
+                 n_layers: int | None = None) -> None:
+    """The model (its first ``n_layers`` layers; all by default) with the
+    same weights upcast to float32, where no bf16 rounding is amplified: a
+    forward and a prefill of 16 + 8 decode steps on the kernel path (each
+    attention call held against its plain version at the float32
+    tolerance), decode vs forward to 2e-2 (tests/test_models_smoke.py) and
+    the kernel path against the plain versions' path to 5e-2.  Makes 9
+    decode_step and 1 forward call of the kernel path."""
     import dataclasses
 
     from repro_torch.models import transformer as tf
 
     V = cfg.vocab_size
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    P = 0 if patches is None else patches.shape[1]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32",
+                                n_layers=n_layers or cfg.n_layers)
     model32 = tf.Transformer(cfg32, device=tokens.device)
-    model32.load_state_dict(model.state_dict())
+    keys = set(model32.state_dict())
+    model32.load_state_dict({k: w for k, w in model.state_dict().items() if k in keys})
+    batch = lm_batch(tokens, patches)
     held: dict = {}
     with attention_swapped(*held_against_plain(held)):
-        full, _ = tf.forward(model32, cfg32, {"tokens": tokens}, use_flash=True)
-        dec = teacher_forced(model32, cfg32, tokens, 16)
+        full, _ = tf.forward(model32, cfg32, batch, use_flash=True)
+        dec = teacher_forced(model32, cfg32, tokens, 16, patches)
     with attention_swapped(*plain_versions):
-        full_ref, _ = tf.forward(model32, cfg32, {"tokens": tokens}, use_flash=True)
-        dec_ref = teacher_forced(model32, cfg32, tokens, 16)
-    err_dec, rel_dec = logits_err(dec, full[:, 15:], V)
+        full_ref, _ = tf.forward(model32, cfg32, batch, use_flash=True)
+        dec_ref = teacher_forced(model32, cfg32, tokens, 16, patches)
+    err_dec, rel_dec = logits_err(dec, full[:, P + 15:], V)
     err_full, rel_full = logits_err(full, full_ref, V)
     err_step, _ = logits_err(dec, dec_ref, V)
-    log(tag, f"{cfg.n_layers} layers upcast to float32: prefill 16 + 8 decode steps vs "
+    log(tag, f"{cfg32.n_layers} layers upcast to float32: prefill 16 + 8 decode steps vs "
         f"forward max abs err {err_dec:.3e} (relative norm {rel_dec:.3e}; tolerance 2e-2); "
         f"kernel vs plain versions' path: forward {err_full:.3e} (relative norm "
         f"{rel_full:.3e}), decode steps {err_step:.3e} (tolerance 5e-2); " + "; ".join(
             f"{name} {n} calls held, max abs err {e:.3e}, row err {r:.3e}"
             for name, (n, e, r) in sorted(held.items())) + " (tolerance 2e-5, rows 1e-4)")
-    if not torch.allclose(dec[..., :V], full[:, 15:, :V], rtol=2e-2, atol=2e-2):
+    if not torch.allclose(dec[..., :V], full[:, P + 15:, :V], rtol=2e-2, atol=2e-2):
         raise AssertionError(f"float32: decode_step differs from forward by {err_dec}")
     if not (err_full <= 5e-2 and err_step <= 5e-2):
         raise AssertionError(f"float32: kernel-path logits differ from the plain versions' "
@@ -2959,6 +3083,306 @@ def phase_granite_train() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- VLM, audio
+
+#: [internvl]: 8 prompts of 256 patch embeddings and 2048 text tokens into
+#: a 4096-slot cache, 32 new tokens; the float32 cut's depth
+VLM_SERVE = dict(batch=8, text=2048, max_len=4096, new=32)
+VLM_F32_CUT = 4
+
+
+def phase_internvl() -> dict:
+    """internvl2-26b's serving path at full width and depth (48 layers,
+    39.8 GB of bf16 weights) through the step builders of ``train/step.py``
+    (``BatchedServer`` takes tokens only, as the reference's): a prefill of
+    patches + text, greedy decode steps with an empty patch prefix; then
+    the kernel-path checks of phase 13 on a prompt of 256 patches + 24
+    tokens and text-only scoring of 256 + 2048 positions.  Returns the
+    attention launches it made, counted from zero, one a layer for each
+    decode_step (the prefill is one) and each kernel-path forward call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import StepConfig, build_decode_step, build_prefill_step
+
+    tag = "internvl"
+    cfg = get_config("internvl2-26b")
+    V, P, L = cfg.vocab_size, cfg.n_patches, cfg.n_layers
+    run = VLM_SERVE
+    B = run["batch"]
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    steps = forwards = 0
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(tag, f"{cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads of {cfg.resolved_head_dim} (G = {cfg.n_heads // cfg.n_kv_heads}), vocab "
+        f"{cfg.vocab_size}, {P} patch embeddings of width {cfg.embed_in_dim}; "
+        f"{n_bytes / 1e9:.3f} GB of bf16 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator(device="cuda")
+    patches = torch.randn((B, P, cfg.embed_in_dim), generator=gen.manual_seed(8),
+                          device="cuda")
+    tokens = torch.randint(0, V, (B, run["text"]), generator=gen.manual_seed(7), device="cuda")
+    empty = patches[:, :0]
+    prefill = build_prefill_step(cfg, run["max_len"], StepConfig(use_flash=True))
+    decode = build_decode_step(cfg, StepConfig(use_flash=True))
+
+    def serve(text, n_new):
+        """Greedy: (new tokens, state, prefill s, decode s a token)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = prefill(model, {"tokens": text, "patches": patches})
+        nxt = logits[:, -1, :V].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        out = [nxt]
+        for _ in range(n_new - 1):
+            logits, state = decode(model, state, {"tokens": nxt, "patches": empty})
+            nxt = logits[:, -1, :V].argmax(-1, keepdim=True)
+            out.append(nxt)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0 - t_pre) / max(n_new - 1, 1)
+        return torch.cat(out, dim=1), state, t_pre, t_dec
+
+    serve(tokens[:, :64], 4)  # warm-up
+    steps += 4
+    torch.cuda.reset_peak_memory_stats()
+    toks, state, t_pre, t_dec = serve(tokens, run["new"])
+    steps += run["new"]
+    S = P + run["text"]
+    kv_gb = B * run["max_len"] * L * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * 2 / 1e9
+    log(tag, f"{B} prompts of {P} patches + {run['text']} tokens, max_len {run['max_len']} "
+        f"(KV cache {kv_gb:.2f} GB), {run['new']} new tokens: prefill {t_pre * 1e3:.1f} ms "
+        f"({B * S / t_pre:.0f} positions/s), decode {t_dec * 1e3:.3f} ms/token at batch {B}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if (toks.shape != (B, run["new"]) or int(toks.min()) < 0 or int(toks.max()) >= V
+            or state.pos != S + run["new"] - 1):
+        raise AssertionError(f"served tokens {tuple(toks.shape)}, state at {state.pos}")
+    prefills = []
+    for _ in range(3):  # the prefill alone
+        prefills.append(serve(tokens, 1)[2])
+    steps += 3
+    log(tag, f"prefill of the same {B} x ({P} + {run['text']}) prompts, three more times: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in prefills)} ms")
+    profiled_breakdown(f"{cfg.name} prefill of the {B} x ({P} + {run['text']}) prompts",
+                       lambda: prefill(model, {"tokens": tokens, "patches": patches}))
+    step = {"tokens": toks[:, -1:], "patches": empty}
+    profiled_breakdown(f"{cfg.name} decode step, batch {B}, {state.pos} cached positions",
+                       lambda: decode(model, state, step))
+    steps += 2
+    del state, toks
+    torch.cuda.empty_cache()
+
+    # The kernel path on 256 patches + 24 tokens (decode vs forward, each
+    # call held, the logits against the plain versions' path and the plain
+    # path, a float32 cut), then text-only scoring of 256 + 2048 positions.
+    small = tokens[:2, :24]
+    checks = check_kernel_path(model, cfg, tag, small, patches[:2], VLM_F32_CUT)
+    forwards += check_scoring(model, cfg, tag, {"tokens": tokens[:1], "patches": patches[:1]})
+    launches = path_launches(tag, cfg, steps, forwards, checks)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+#: [hubert]: 8 x 2048 frames to encode, the share of labels at -100, and
+#: the train steps at 8 x 512 (lr with a float32 master copy)
+AUDIO_ENCODE = dict(batch=8, frames=2048, masked=0.1)
+AUDIO_TRAIN = dict(batch=8, frames=512, steps=10, lr=1e-3)
+#: depth of hubert's float32 cut whose gradient is held against central
+#: differences
+AUDIO_CUT = 2
+
+
+def phase_hubert() -> dict:
+    """hubert-xlarge at full width and depth (48 layers, head_dim 80,
+    non-causal): 8 x 2048 frames encoded through the encoder's prefill step
+    on the kernel path, each ``flash_attention`` call held against its plain
+    version, the logits against the plain versions' path (with its floor)
+    and the plain path, the per-frame loss with about 10 % of the labels
+    at -100, kernels against plain; then 10 train steps at 8 x 512 through
+    ``build_train_step`` on the plain routes, on labels that are a fixed
+    function of the frames (the argmax of a fixed random projection), the
+    loss falling; then a 2-layer float32 cut's gradient per group
+    (``in_proj``, one attention, ``lm_head``) against central differences,
+    a zeroed attention gradient rejected.  Returns the attention launches
+    of the encode path, counted from zero: one a layer for each kernel-path
+    forward call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import StepConfig, build_eval_step, build_prefill_step, build_train_step
+
+    tag = "hubert"
+    card = card_line()
+    cfg = get_config("hubert-xlarge")
+    V, L = cfg.vocab_size, cfg.n_layers
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    forwards = 0
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(tag, f"{cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, non-causal, {cfg.vocab_size} targets (padded to "
+        f"{cfg.vocab_padded}), frame embeddings of width {cfg.embed_in_dim}, no token "
+        f"embedding; {n_bytes / 1e9:.3f} GB of bf16 weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    run = AUDIO_ENCODE
+    B, S = run["batch"], run["frames"]
+    gen = torch.Generator(device="cuda")
+    frames = torch.randn((B, S, cfg.embed_in_dim), generator=gen.manual_seed(3), device="cuda")
+    batch = {"embeds": frames}
+    encode = build_prefill_step(cfg, S, StepConfig(use_flash=True))
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(4):  # the first, then three more
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = encode(model, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    forwards += 4
+    peak = torch.cuda.max_memory_allocated()
+    if (logits.shape != (B, S, cfg.vocab_padded) or not torch.isfinite(logits[..., :V]).all()
+            or not (logits[..., V:].float() < -1e20).all()):
+        raise AssertionError(f"encode: logits {tuple(logits.shape)}, finite and pad-masked?")
+    log(tag, f"encode {B} x {S} frames (prefill step, kernel path): "
+        f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms (first, then three more), "
+        f"{B * S / min(walls[1:]):.0f} frames/s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"card {card}")
+    profiled_breakdown(f"{cfg.name} encode of {B} x {S} frames", lambda: encode(model, batch))
+    forwards += 1
+
+    # The kernel path against the plain versions' path, its floor and the
+    # plain path; every flash_attention call held against its plain version.
+    held: dict = {}
+    with attention_swapped(*held_against_plain(held)):
+        got = encode(model, batch)
+    forwards += 1
+    with attention_swapped(decode_attention_ref, flash_attention_ref):
+        want = encode(model, batch)
+    with attention_swapped(decode_attention_ref, functools.partial(
+            flash_attention_ref, sm_scale=(1 + 2**-20) * cfg.resolved_head_dim**-0.5)):
+        floor, floor_rel = logits_err(encode(model, batch), want, V)
+    plain = build_prefill_step(cfg, S)(model, batch)
+    err, rel = logits_err(got, want, V)
+    err_plain, rel_plain = logits_err(got, plain, V)
+    _, rel_ref_plain = logits_err(want, plain, V)
+    del got, want, plain
+    n, e, r = held["flash_attention"]
+    log(tag, f"{n} flash_attention calls vs their plain versions: max abs err {e:.3e}, row "
+        f"err {r:.3e} (tolerance 5e-2, rows 1e-2); {L}-layer logits vs the plain versions' "
+        f"path max abs err {err:.3e} (relative norm {rel:.3e}), floor {floor:.3e} (relative "
+        f"norm {floor_rel:.3e}; tolerance {max(5e-2, 2 * floor):.3g}, relative norm 5e-2); "
+        f"vs the plain path (_sdpa) max abs err {err_plain:.3e}, relative norm "
+        f"{rel_plain:.3e} (tolerance 5e-2; the plain versions' {rel_ref_plain:.3e})")
+    if not (err <= max(5e-2, 2 * floor) and rel <= 5e-2 and rel_plain <= 5e-2):
+        raise AssertionError(f"encode logits: kernels vs plain versions {err} (relative norm "
+                             f"{rel}), floor {floor}; vs the plain path {rel_plain}")
+
+    # The per-frame loss, about 10 % of the labels masked.
+    labels = torch.randint(0, V, (B, S), generator=gen.manual_seed(4), device="cuda")
+    masked = torch.rand((B, S), generator=gen, device="cuda") < run["masked"]
+    labels[masked] = -100
+    scored = {"embeds": frames, "labels": labels}
+    loss = float(build_eval_step(cfg, StepConfig(use_flash=True, logits_chunk=512))(
+        model, scored))
+    forwards += 1
+    ref = float(build_eval_step(cfg, StepConfig(logits_chunk=512))(model, scored))
+    log(tag, f"per-frame loss, {int(masked.sum())} of {B * S} labels at -100: kernels "
+        f"{loss:.5f}, plain path {ref:.5f} (|diff| {abs(loss - ref):.2e}, tolerance 2e-2)")
+    if not (math.isfinite(loss) and abs(loss - ref) <= 2e-2):
+        raise AssertionError(f"per-frame loss {loss} vs plain {ref}")
+
+    launches = {"decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    want_launches = {"decode_attention": 0, "flash_attention": L * forwards}
+    if launches != want_launches:
+        raise AssertionError(f"{tag} launches {launches}, want {want_launches} ({L} per "
+                             f"forward call, {forwards} calls)")
+    log("launches", f"{tag} path ({cfg.name}): flash_attention {launches['flash_attention']} "
+        f"({L} x {forwards} forward calls), decode_attention 0")
+    del model, frames, batch, logits, labels, scored
+    torch.cuda.empty_cache()
+
+    # Train steps on the plain routes (the kernels have no backward).
+    run = AUDIO_TRAIN
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    optim_cfg = AdamWConfig(lr=run["lr"], master_fp32=True)
+    opt_state = init_state(optim_cfg, dict(model.named_parameters()))
+    train_step = build_train_step(cfg, optim_cfg, StepConfig())
+    frames = torch.randn((run["batch"], run["frames"], cfg.embed_in_dim),
+                         generator=gen.manual_seed(5), device="cuda")
+    proj = torch.randn((cfg.embed_in_dim, V), generator=gen, device="cuda")
+    batch = {"embeds": frames, "labels": (frames @ proj).argmax(-1).int()}
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(run["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_state, metrics = train_step(model, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(secs[1:])
+    med = steady[len(steady) // 2]
+    n_frames = run["batch"] * run["frames"]
+    log(tag, f"{run['steps']} train steps at {run['batch']} x {run['frames']} (build_train_step, "
+        f"plain routes, AdamW lr {run['lr']} with a float32 master copy; the schedule's first "
+        f"step applies lr 0): loss {', '.join(f'{x:.4f}' for x in losses)}; step time first "
+        f"{secs[0] * 1e3:.1f} ms, median {med * 1e3:.1f} ms (min {steady[0] * 1e3:.1f}, max "
+        f"{steady[-1] * 1e3:.1f}), {n_frames / med:.0f} frames/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; card {card}")
+    if not (all(map(math.isfinite, losses)) and sum(losses[-3:]) < sum(losses[:3])):
+        raise AssertionError(f"hubert training: losses {losses} (finite, falling)")
+    del model, opt_state, frames, batch
+    torch.cuda.empty_cache()
+
+    # The gradient of a float32 cut of the first AUDIO_CUT layers at full
+    # width against central differences: in_proj, layer 0's attention,
+    # lm_head; then with layer 0's attention gradient zeroed, rejected.
+    cut = dataclasses.replace(cfg, n_layers=AUDIO_CUT, param_dtype="float32",
+                              compute_dtype="float32")
+    small = tf.init_params(cut, seed=0, device="cuda")
+    frames = torch.randn((2, 64, cfg.embed_in_dim), generator=gen.manual_seed(6), device="cuda")
+    labels = torch.randint(0, V, (2, 64), generator=gen, device="cuda")
+    labels[:, ::10] = -100
+    batch = {"embeds": frames, "labels": labels}
+    params = dict(small.named_parameters())
+    loss = tf.loss_fn(small, cut, batch)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    groups = {"in_proj": ["in_proj"],
+              "attn 0": [n for n in params if n.startswith("blocks.0.attn.")],
+              "lm_head": ["lm_head"]}
+    with torch.no_grad():
+        checks = directional_check(lambda: float(tf.loss_fn(small, cut, batch)), params,
+                                   grads, groups, seed=7)
+    log(tag, f"gradient check: {AUDIO_CUT}-layer float32 cut at full width, 2 x 64 frames "
+        f"(every tenth label at -100), loss {float(loss.detach()):.6f}, relative step "
+        f"{GRAD_H}, tolerance {GRAD_RTOL} of the central difference + {GRAD_ATOL}")
+    failed = check_directions(f"{tag} autograd", checks, grads)
+    if failed:
+        raise AssertionError(f"hubert's autograd gradient misses central differences in {failed}")
+    faulty = {n: (torch.zeros_like(g) if n.startswith("blocks.0.attn.") else g)
+              for n, g in grads.items()}
+    rejected = check_directions(f"{tag} attn 0 zeroed", checks, faulty)
+    if rejected != ["attn 0"]:
+        raise AssertionError(f"the check with attn 0's gradient zeroed rejected {rejected}")
+    del small, params, grads, faulty, checks
+    torch.cuda.empty_cache()
+    return launches
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3036,16 +3460,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # The serving paths, qwen3-0.6b, gemma-7b (head_dim 256),
-    # granite-moe-1b-a400m (MoE, head_dim 64) and one period of jamba-v0.1
-    # (Mamba, MoE), each counted from zero inside; serving records no
-    # autograd graph.
+    # granite-moe-1b-a400m (MoE, head_dim 64), one period of jamba-v0.1
+    # (Mamba, MoE) and internvl2-26b (patches + text, G = 6), each counted
+    # from zero inside; serving records no autograd graph.
     with torch.no_grad():
         launches.update(phase_serve())
         torch.cuda.empty_cache()
         for path in (lambda: phase_serve("gemma-7b", tag="gemma", requests=8, long_new=32),
                      lambda: phase_serve("granite-moe-1b-a400m", tag="granite", requests=8,
                                          long_new=32),
-                     phase_jamba):
+                     phase_jamba, phase_internvl):
             t_path = time.perf_counter()
             for name, n in path().items():
                 launches[name] += n
@@ -3068,6 +3492,14 @@ def main() -> int:
     t_train = time.perf_counter()
     phase_granite_train()
     log("granite", f"training phase wall {time.perf_counter() - t_train:.1f} s")
+
+    # The audio encoder: hubert-xlarge encoded through the kernels (its
+    # launches counted from zero inside) and trained on the plain routes.
+    t_path = time.perf_counter()
+    for name, n in phase_hubert().items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    log("hubert", f"phase wall {time.perf_counter() - t_path:.1f} s")
 
     sources = {"segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce/kernel.py:28"),

@@ -1,13 +1,19 @@
-"""Architecture registry: ``get_config(arch)`` and smoke variants.
+"""Architecture registry: ``get_config(arch)``, smoke variants, input specs.
 
 Counterpart of ``repro.configs``; the dataclasses and the ten architecture
-files are copies.  The reference's ``input_specs`` and ``concrete_batch``
-(jax ``ShapeDtypeStruct``s and ``jax.random`` batches) have no counterpart.
+files are copies.  ``input_specs`` gives each input's (shape, dtype) where
+the reference gives ``jax.ShapeDtypeStruct``s, and ``concrete_batch``
+draws a batch of those shapes from a numpy seed onto a device (the same
+distributions as the reference's ``jax.random`` batch, not the same
+numbers).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
+import torch
 
 from repro_torch.configs.base import (
     SHAPES,
@@ -88,6 +94,48 @@ def smoke_config(arch: str) -> ModelConfig:
     )
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """{name: (shape, dtype)} for every model input of one shape cell.
+
+    train / prefill: the whole (B, S) batch; a VLM's text is S - n_patches
+    tokens after n_patches patch embeddings.  decode: (B, 1) new tokens,
+    and for a VLM an empty (B, 0, embed_in_dim) patch prefix (the cache or
+    state is built separately).  An encoder takes frame embeddings, plus
+    per-frame ``labels`` to train.
+    """
+    B = shape.global_batch
+    decode = shape.kind == "decode"
+    S = 1 if decode else shape.seq_len
+    f32, i32 = torch.float32, torch.int32
+    if cfg.family == "vlm":
+        n_txt = 1 if decode else max(S - cfg.n_patches, 1)
+        n_pat = 0 if decode else cfg.n_patches
+        return {"tokens": ((B, n_txt), i32),
+                "patches": ((B, n_pat, cfg.embed_in_dim), f32)}
+    if cfg.input_kind == "embeddings":
+        spec = {"embeds": ((B, S, cfg.embed_in_dim), f32)}
+        if shape.kind == "train":
+            spec["labels"] = ((B, S), i32)
+        return spec
+    return {"tokens": ((B, S), i32)}
+
+
+def concrete_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                   device="cpu") -> dict:
+    """A batch matching :func:`input_specs`, drawn from
+    ``numpy.random.default_rng(seed)`` onto ``device``: integers uniform
+    in [0, vocab_size), floats standard normal."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (shp, dtype) in input_specs(cfg, shape).items():
+        if dtype == torch.int32:
+            a = rng.integers(0, cfg.vocab_size, size=shp, dtype=np.int32)
+        else:
+            a = rng.standard_normal(shp, dtype=np.float32)
+        out[name] = torch.from_numpy(a).to(device)
+    return out
+
+
 __all__ = [
     "ModelConfig",
     "MoEConfig",
@@ -97,4 +145,6 @@ __all__ = [
     "applicable_shapes",
     "get_config",
     "smoke_config",
+    "input_specs",
+    "concrete_batch",
 ]

@@ -108,19 +108,27 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+#: the LM's parameters outside the blocks that some configurations lack
+_TOP_LEVEL = ("embed", "lm_head", "in_proj")
+
+
 def lm_params_from_reference(tree: dict) -> dict:
     """State dict of the port's ``Transformer`` from a reference params pytree.
 
     The reference stacks each in-period position's parameters over repeats
     (``blocks/pos{p}/...`` with leading axis ``n_rep``), so layer
     ``i = rep * P + p``: the norms, ``attn``, ``mamba`` or ``rwkv``, and
-    ``ffn``, ``moe`` or both (arctic).  Leaves may be numpy or anything
-    ``np.asarray`` takes; dtypes are kept (bfloat16 through float32).
+    ``ffn``, ``moe`` or both (arctic).  ``embed``, ``lm_head`` and
+    ``in_proj`` cross where the tree has them (an audio encoder has no
+    ``embed``; a VLM or an encoder has ``in_proj``).  Leaves may be numpy
+    or anything ``np.asarray`` takes; dtypes are kept (bfloat16 through
+    float32).
     """
 
-    state = {"embed": _tensor(tree["embed"]), "final_norm": _tensor(tree["final_norm"]["w"])}
-    if "lm_head" in tree:
-        state["lm_head"] = _tensor(tree["lm_head"])
+    state = {"final_norm": _tensor(tree["final_norm"]["w"])}
+    for name in _TOP_LEVEL:
+        if name in tree:
+            state[name] = _tensor(tree[name])
     P = len(tree["blocks"])
     for p in range(P):
         blk = tree["blocks"][f"pos{p}"]
@@ -148,9 +156,10 @@ def lm_params_to_reference(cfg, state: dict) -> dict:
     ``m``): layer ``i = rep * P + p`` stacked under ``blocks/pos{p}``."""
     P = cfg.pattern_period
     n_rep = cfg.n_layers // P
-    tree = {"embed": _array(state["embed"]), "final_norm": {"w": _array(state["final_norm"])}}
-    if "lm_head" in state:
-        tree["lm_head"] = _array(state["lm_head"])
+    tree = {"final_norm": {"w": _array(state["final_norm"])}}
+    for name in _TOP_LEVEL:
+        if name in state:
+            tree[name] = _array(state[name])
     blocks = {}
     for p in range(P):
         layers = [rep * P + p for rep in range(n_rep)]

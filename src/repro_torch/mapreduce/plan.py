@@ -815,11 +815,33 @@ class ExecutionPlan:
                     recorder.traces.remove(trace)
                 raise
 
+        # Each phase's window ends when every rank of the group has
+        # finished it, as the reference's ``block_until_ready`` on arrays
+        # sharded over all workers does: the counter collective (or the
+        # output all-gather) that follows a phase runs inside its window,
+        # so a wait for a slower peer counts in that phase and the time
+        # outside all phases is only this rank's own host work.
+        def map_counted(tokens):
+            k, v, pv = w_map(tokens)
+            return (k, v, pv), global_sum(int(pv.sum().item()))
+
+        def combine_counted(k, v, pv):
+            k, v, pv = w_combine(k, v, pv)
+            return (k, v, pv), global_sum(int(pv.sum().item()))
+
+        def shuffle_counted(k, v, pv):
+            bk, bv, dropped = w_shuffle(k, v, pv)
+            per_worker = gather(dropped).cpu().numpy()
+            pairs_out = global_sum(int((bk != PAD_KEY).sum().item()))
+            return (bk, bv, dropped), per_worker, pairs_out
+
+        def reduce_finished(bk, bv, dropped):
+            return finish(*w_reduce(bk, bv), dropped)
+
         def run(tokens, trace):
             t_job = time.perf_counter()
 
-            (k, v, pv), dt, cpu = fenced(w_map, tokens)
-            pairs_emitted = global_sum(int(pv.sum().item()))
+            ((k, v, pv), pairs_emitted), dt, cpu = fenced(map_counted, tokens)
             trace.record_phase(
                 "map", dt,
                 tasks=M, waves=waves_m, workers=W, records_in=input_len,
@@ -829,8 +851,8 @@ class ExecutionPlan:
 
             shuffle_pairs_in = pairs_emitted
             if combiner:
-                (k, v, pv), dt, cpu = fenced(w_combine, k, v, pv)
-                shuffle_pairs_in = global_sum(int(pv.sum().item()))
+                ((k, v, pv), shuffle_pairs_in), dt, cpu = fenced(
+                    combine_counted, k, v, pv)
                 trace.record_phase(
                     "combine", dt,
                     tasks=M, workers=W,
@@ -842,10 +864,9 @@ class ExecutionPlan:
                     net_bytes=0.0,
                 )
 
-            (bk, bv, dropped), dt, cpu = fenced(w_shuffle, k, v, pv)
-            per_worker = gather(dropped).cpu().numpy()
+            ((bk, bv, dropped), per_worker, pairs_out), dt, cpu = fenced(
+                shuffle_counted, k, v, pv)
             n_dropped = int(per_worker.sum())
-            pairs_out = global_sum(int((bk != PAD_KEY).sum().item()))
             trace.record_phase(
                 "shuffle", dt,
                 pairs_in=shuffle_pairs_in, pairs_out=pairs_out,
@@ -862,8 +883,7 @@ class ExecutionPlan:
                 net_s=dt,
             )
 
-            (ok, ov), dt, cpu = fenced(w_reduce, bk, bv)
-            out = finish(ok, ov, dropped)
+            out, dt, cpu = fenced(reduce_finished, bk, bv, dropped)
             trace.record_phase(
                 "reduce", dt,
                 tasks=R, waves=waves_r, workers=W,

@@ -1,6 +1,6 @@
-"""The decoder LM: attention, Mamba and RWKV blocks over token input.
+"""The LM: attention, Mamba and RWKV blocks over token, VLM or audio input.
 
-Counterpart of ``repro.models.transformer`` on token input:
+Counterpart of ``repro.models.transformer``:
 
 * ``"attn"``: norm -> GQA attention -> residual, then the FFN sub-block;
 * ``"mamba"``: norm -> selective SSM -> residual, then the FFN sub-block;
@@ -12,8 +12,14 @@ of width ``d_ff_dense`` in parallel when ``dense_residual`` is set; the MoE
 layers' Switch aux losses are summed over the layers.  The reference
 stacks each in-period position's parameters over repeats and scans them;
 here the blocks are an ``nn.ModuleList`` in layer order (layer
-``i = rep * P + p``) and a Python loop runs them.  Embedding/VLM input
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+``i = rep * P + p``) and a Python loop runs them.
+
+Input comes in three kinds, as in the reference: token ids (``tokens``);
+a VLM's patch embeddings (``patches``, width ``embed_in_dim``) projected
+by ``in_proj`` and put in front of its text ``tokens``, its loss on text
+positions only; an audio encoder's frame embeddings (``embeds``)
+projected by ``in_proj``, with a per-frame loss against ``labels``
+(-100 masked) and no token embedding.
 
 The config passed to ``forward``, ``loss_fn`` and ``decode_step`` sets the
 computation (the compute dtype, the MoE capacity factor); the one a
@@ -61,19 +67,14 @@ from repro_torch.models.ssm import (
     rwkv_time_mix,
 )
 
-#: ROADMAP.md, queue 1, item 10: the parts of the LM stack still to port
-_NOT_PORTED = "not ported yet (ROADMAP.md queue 1, item 10: {})"
-
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not port: embedding/VLM input."""
+    """Raise for a block kind or an input kind the model does not know."""
     unknown = set(cfg.block_pattern) - {"attn", "mamba", "rwkv"}
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
-    if cfg.input_kind != "tokens" or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.input_kind}/{cfg.family} input "
-            + _NOT_PORTED.format("VLM and audio inputs"))
+    if cfg.input_kind not in ("tokens", "embeddings"):
+        raise ValueError(f"{cfg.name}: unknown input kind {cfg.input_kind!r}")
 
 
 def _moe_positions_valid(cfg: ModelConfig) -> None:
@@ -199,11 +200,15 @@ class RWKVBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Token embedding, ``n_layers`` blocks, final norm, (tied) unembedding.
+    """Input embedding, ``n_layers`` blocks, final norm, (tied) unembedding.
 
-    ``generator`` draws the weights as the reference's ``init_params`` does
-    (same distributions, not the same numbers); without one the weights are
-    left uninitialised for ``load_state_dict``.
+    The parameters are the reference's ``init_params``: ``embed`` for token
+    input or a VLM, ``lm_head`` unless the embedding is tied, and
+    ``in_proj`` (embed_in_dim, d_model) for embedding input or a VLM; an
+    audio encoder has ``in_proj`` and ``lm_head`` and no ``embed``.
+    ``generator`` draws the weights as the reference does (same
+    distributions, not the same numbers); without one the weights are left
+    uninitialised for ``load_state_dict``.
     """
 
     def __init__(self, cfg: ModelConfig, *, generator: torch.Generator | None = None,
@@ -219,16 +224,24 @@ class Transformer(nn.Module):
             kinds[kind](cfg, dtype, dev, generator, layer=i)
             for i, kind in enumerate(cfg.layer_kinds()))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=dev))
-        if generator is not None:
-            embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=generator,
-                                device=dev) * cfg.d_model**-0.5
-            embed = embed.to(dtype)
-        else:
-            embed = torch.empty((cfg.vocab_padded, cfg.d_model), dtype=dtype, device=dev)
-        self.embed = nn.Parameter(embed)
-        if not cfg.tie_embeddings:
-            w = dense_weight(generator, cfg.d_model, cfg.vocab_padded, dtype, dev)
-            self.lm_head = nn.Parameter(w)
+        vlm, audio = cfg.family == "vlm", cfg.family == "audio"
+        if cfg.input_kind == "tokens" or vlm:
+            if generator is not None:
+                embed = torch.randn((cfg.vocab_padded, cfg.d_model), generator=generator,
+                                    device=dev) * cfg.d_model**-0.5
+                embed = embed.to(dtype)
+            else:
+                embed = torch.empty((cfg.vocab_padded, cfg.d_model), dtype=dtype, device=dev)
+            self.embed = nn.Parameter(embed)
+            if not cfg.tie_embeddings:
+                w = dense_weight(generator, cfg.d_model, cfg.vocab_padded, dtype, dev)
+                self.lm_head = nn.Parameter(w)
+        if cfg.input_kind == "embeddings" or vlm:
+            w = dense_weight(generator, cfg.embed_in_dim, cfg.d_model, dtype, dev)
+            self.in_proj = nn.Parameter(w)
+            if audio:
+                w = dense_weight(generator, cfg.d_model, cfg.vocab_padded, dtype, dev)
+                self.lm_head = nn.Parameter(w)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
@@ -238,8 +251,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
 
 
 def embed_inputs(model: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Token ids (B, S) -> hidden states (B, S, D) in the parameter dtype."""
+    """The batch -> hidden states (B, S, D): token ids (B, S) embedded in the
+    parameter dtype; a VLM's patches (B, n_patches, embed_in_dim) projected
+    in the compute dtype, cast to the token embedding's dtype and put in
+    front of its text; an encoder's frames (B, S, embed_in_dim) projected
+    in the compute dtype."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.family == "vlm":
+        tok = F.embedding(batch["tokens"].long(), model.embed)
+        patches = batch["patches"].to(cdt) @ model.in_proj.to(cdt)
+        return torch.cat([patches.to(tok.dtype), tok], dim=1)
+    if cfg.input_kind == "embeddings":
+        return batch["embeds"].to(cdt) @ model.in_proj.to(cdt)
     return F.embedding(batch["tokens"].long(), model.embed)
+
+
+def input_shape(cfg: ModelConfig, batch: dict) -> tuple[int, int]:
+    """(B, S) of the hidden states a batch of ``cfg``'s input kind makes:
+    a VLM's S counts its patches and its text."""
+    if cfg.family == "vlm":
+        return batch["tokens"].shape[0], batch["tokens"].shape[1] + batch["patches"].shape[1]
+    if cfg.input_kind == "embeddings":
+        return tuple(batch["embeds"].shape[:2])
+    return tuple(batch["tokens"].shape)
 
 
 def unembed(model: Transformer, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -316,16 +350,20 @@ def forward(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=Fals
 
 def loss_fn(model: Transformer, cfg: ModelConfig, batch: dict, *, use_flash=False,
             remat="none", wkv_kernel=True, logits_chunk: int = 0) -> torch.Tensor:
-    """Next-token LM loss, plus ``router_aux_weight`` times the summed aux
-    with MoE; ``logits_chunk > 0`` computes logits and the loss in
-    sequence chunks of that size (never the full (B, S, V) logits)."""
-    if not cfg.causal:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder loss " + _NOT_PORTED.format("VLM and audio inputs"))
+    """Next-token LM loss (a VLM's on its text positions only: the patches
+    are prefix context), or an encoder's per-frame loss against
+    ``labels`` with -100 masked; plus ``router_aux_weight`` times the
+    summed aux with MoE.  ``logits_chunk > 0`` computes logits and the
+    loss in sequence chunks of that size (never the full (B, S, V) logits)."""
     h, aux = forward(model, cfg, batch, use_flash=use_flash, remat=remat,
                      wkv_kernel=wkv_kernel, return_hidden=True)
-    labels = batch["tokens"][:, 1:].long()
-    h = h[:, :-1]
+    if cfg.causal:
+        if cfg.family == "vlm":
+            h = h[:, batch["patches"].shape[1]:]
+        labels = batch["tokens"][:, 1:].long()
+        h = h[:, :-1]
+    else:
+        labels = batch["labels"].long()
     S = h.shape[1]
     if not (logits_chunk and S > logits_chunk):
         loss = cross_entropy_loss(unembed(model, cfg, h), labels)
@@ -371,7 +409,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 @torch.no_grad()
 def decode_step(model: Transformer, cfg: ModelConfig, state: DecodeState, batch: dict, *,
                 use_flash=False):
-    """Append S new tokens (S = 1 to decode) -> (logits (B, S, V), state).
+    """Append S new positions (S = 1 to decode) -> (logits (B, S, V), state);
+    a VLM's decode batch carries an empty (B, 0, embed_in_dim) patch prefix.
 
     The caches are written in place and the RWKV and Mamba states replaced;
     the returned state is ``state`` with ``pos`` advanced by S.
@@ -387,14 +426,14 @@ def decode_step(model: Transformer, cfg: ModelConfig, state: DecodeState, batch:
 def prefill(model: Transformer, cfg: ModelConfig, batch: dict, max_len: int, *,
             use_flash=False, cache_dtype=torch.bfloat16):
     """Process the whole prompt: (last-token logits (B, 1, V), filled state)."""
-    B = batch["tokens"].shape[0]
-    state = init_decode_state(cfg, B, max_len, cache_dtype, model.embed.device)
+    B, _ = input_shape(cfg, batch)
+    state = init_decode_state(cfg, B, max_len, cache_dtype, model.final_norm.device)
     logits, state = decode_step(model, cfg, state, batch, use_flash=use_flash)
     return logits[:, -1:], state
 
 
 __all__ = [
     "Transformer", "Block", "MambaBlock", "RWKVBlock", "FFN", "DecodeState", "check_supported", "init_params",
-    "embed_inputs", "unembed", "forward", "loss_fn", "init_decode_state",
+    "embed_inputs", "input_shape", "unembed", "forward", "loss_fn", "init_decode_state",
     "decode_step", "prefill",
 ]

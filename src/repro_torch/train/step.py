@@ -101,7 +101,7 @@ def build_train_step(cfg: ModelConfig, optim_cfg: adamw.AdamWConfig,
 
 
 def build_eval_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
-    """(model, batch) -> forward-only LM loss (scoring), without autograd."""
+    """(model, batch) -> forward-only loss (scoring), without autograd."""
 
     @torch.no_grad()
     def eval_step(model, batch):
@@ -113,11 +113,16 @@ def build_eval_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
 
 def build_prefill_step(cfg: ModelConfig, max_len: int,
                        step_cfg: StepConfig = StepConfig()):
-    """(model, batch) -> (last-token logits, decode state)."""
+    """(model, batch) -> (last-token logits, decode state); for an encoder
+    (``cfg.causal`` false) -> the logits of every frame, a forward without
+    autograd and without a cache."""
     if not cfg.causal:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder prefill is not ported yet (ROADMAP.md queue 1, "
-            "item 10: VLM and audio inputs)")
+
+        @torch.no_grad()
+        def encode_step(model, batch):
+            return tf.forward(model, cfg, batch, use_flash=step_cfg.use_flash)[0]
+
+        return encode_step
     cache_dtype = getattr(torch, step_cfg.cache_dtype)
 
     def prefill_step(model, batch):

@@ -233,6 +233,10 @@ def _assert_close(got, want, dtype):
     (2, 129, 129, 4, 2, 256, True),     # ragged S, B > 1
     (1, 40, 40, 8, 2, 256, True),       # a 128-row tile spans the G = 4 query heads
     (1, 65, 200, 4, 1, 192, False),     # head_dim 192: a fourth swizzle box all zeros
+    # internvl2-26b's G = 6 and hubert-xlarge's non-causal head_dim 80
+    (1, 300, 300, 12, 2, 128, True),    # G = 6: 64-row tiles span the query heads
+    (2, 130, 130, 6, 1, 128, True),     # G = 6, one KV head, B > 1, ragged S
+    (2, 300, 300, 4, 4, 80, False),     # MHA at head_dim 80, non-causal, ragged S
 ])
 def test_flash_attention_matches_plain(dtype, B, Sq, Sk, Hq, nkv, hd, causal):
     _needs_card()
@@ -265,6 +269,9 @@ def test_flash_attention_matches_plain(dtype, B, Sq, Sk, Hq, nkv, hd, causal):
     (2, 1, 1000, 4, 2, 256, 777),       # G = 2, split at a ragged end
     (1, 100, 512, 4, 4, 256, 300),      # prefill rows after 200 cached
     (2, 40, 255, 8, 2, 256, 200),       # rows span the G = 4 heads, ragged S_max
+    # internvl2-26b's G = 6
+    (2, 1, 4096, 12, 2, 128, 2330),     # decode: 6 rows a KV head, keys split
+    (1, 50, 512, 12, 2, 128, 306),      # prefill rows after 256 cached span the G = 6 heads
 ])
 def test_decode_attention_matches_plain(dtype, B, Sq, S_max, Hq, nkv, hd, kv_len):
     _needs_card()
@@ -529,3 +536,44 @@ def test_full_width_train_step_on_card_matches_cpu():
     for (n, a), b in zip(card.named_parameters(), cpu.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=1e-4, atol=3 * lr_sum,
                                    msg=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,heads", [
+    ("internvl2-26b", dict(n_heads=12, n_kv_heads=2, head_dim=128)),  # G = 6
+    ("hubert-xlarge", dict(n_heads=4, n_kv_heads=4, head_dim=80)),    # non-causal, hd 80
+])
+def test_vlm_and_encoder_kernel_paths_on_card_match_cpu(arch, heads):
+    """The smoke configs at internvl2-26b's G = 6 and hubert-xlarge's head
+    dim 80, in float32: the kernel path's forward on the card against the
+    same model on the CPU (the kernels' plain versions), and for the VLM a
+    prefill of patches + text and two decode steps.  Logits to 1e-4."""
+    _needs_card()
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, concrete_batch, smoke_config
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(smoke_config(arch), compute_dtype="float32", **heads)
+    cpu = tf.init_params(cfg, seed=0, device="cpu")
+    card = tf.Transformer(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    batch = concrete_batch(cfg, ShapeConfig("p", "prefill", 40, 2), seed=1)
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    close = lambda got, want: torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    before = flash_attention.launches
+    with torch.no_grad():
+        close(tf.forward(card, cfg, on_card, use_flash=True)[0],
+              tf.forward(cpu, cfg, batch, use_flash=True)[0])
+    assert flash_attention.launches == before + cfg.n_layers
+    if cfg.family != "vlm":
+        return
+    states = [tf.init_decode_state(cfg, 2, 64, cache_dtype=torch.float32, device=d)
+              for d in ("cpu", "cuda")]
+    steps = [batch] + [{"tokens": batch["tokens"][:, i:i + 1],
+                        "patches": batch["patches"][:, :0]} for i in range(2)]
+    for step in steps:
+        want, _ = tf.decode_step(cpu, cfg, states[0], step, use_flash=True)
+        got, _ = tf.decode_step(card, cfg, states[1], {k: v.cuda() for k, v in step.items()},
+                                use_flash=True)
+        close(got, want)

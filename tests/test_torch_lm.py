@@ -281,15 +281,9 @@ def test_server_tokens_match_reference_where_decided(models):
     assert checked > 0
 
 
-def test_unported_configs_raise():
-    """Only the embedding and VLM inputs (ROADMAP queue 1 item 10.4) remain."""
-    for arch in ("internvl2-26b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.Transformer(smoke_config(arch), device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b", "arctic-480b"])
-def test_moe_and_mamba_configs_are_accepted(arch):
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b", "arctic-480b",
+                                  "internvl2-26b", "hubert-xlarge"])
+def test_every_config_is_accepted(arch):
     cfg = get_config(arch)
     tf.check_supported(cfg)
     model = tf.Transformer(smoke_config(arch), device="cpu")

@@ -270,7 +270,7 @@ for W, group in ((2, pairs[rank // 2]), (4, None)):
                 rec = PhaseRecorder()
                 traced = plan.sharded(group, recorder=rec)(corpus_)
                 assert all(torch.equal(a, b) for a, b in zip(traced, want)), ctx
-                assert rec.last.check_conservation() == [], ctx
+                assert (bad := rec.last.check_conservation()) == [], (ctx, bad)
                 assert rec.last.counter("shuffle", "pairs_dropped") == int(dropped), ctx
                 cases += 1
 dist.barrier()
@@ -325,3 +325,52 @@ def test_sharded_w2_w4_gloo_ranks_match_emulated(tmp_path, rank_processes_alone)
                      {**os.environ, "OMP_NUM_THREADS": "1"})
     for r, out in enumerate(outs):
         assert f"rank {r}: 16 cases" in out, out
+
+
+_LATE_RANK_SCRIPT = r"""
+import datetime, sys, time
+import torch.distributed as dist
+
+sys.path.insert(0, sys.argv[3])
+import repro_torch.mapreduce as port
+from repro_torch.telemetry import PhaseRecorder
+
+rank, init = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+corpus = port.wordcount_corpus(900, vocab_size=53, seed=9)
+cfg = port.JobConfig(5, 3, 2, combiner=True, shuffle_backend="all_to_all")
+plan = port.ExecutionPlan(port.wordcount(53), cfg, len(corpus), device="cpu")
+want = plan.fused()(corpus)
+job = plan.sharded(recorder=(rec := PhaseRecorder()))
+job(corpus)  # a first traced call in step: both ranks warm
+dist.barrier()
+if rank == 1:
+    time.sleep(0.5)  # late: rank 0 waits for it in the map's counter sum
+out = job(corpus)
+assert all(a.equal(b) for a, b in zip(out, want))
+bad = rec.last.check_conservation()
+map_s = rec.last.phases[0].wall_s
+dist.barrier()
+dist.destroy_process_group()
+print(f"rank {rank}: map {map_s:.3f} s, total {rec.last.total_s:.3f} s, "
+      f"violations {bad}", flush=True)
+assert bad == [], bad
+if rank == 0:
+    assert map_s >= 0.4, map_s
+"""
+
+
+def test_sharded_traced_phase_waits_for_a_late_rank(tmp_path, rank_processes_alone):
+    """Two gloo ranks at W = 2; rank 1 starts its traced call 0.5 s late.
+    Rank 0 waits for it in the map's cross-rank counter sum, and that wait
+    must fall inside the map phase (as the reference's
+    ``block_until_ready`` on a sharded array puts it), so every rank's
+    trace conserves: the phase walls sum to the job's total."""
+    script = tmp_path / "late_rank.py"
+    script.write_text(_LATE_RANK_SCRIPT)
+    init = f"file://{tmp_path / 'pg'}"
+    outs = run_ranks([[sys.executable, str(script), str(r), init, str(SRC)] for r in range(2)],
+                     {**os.environ, "OMP_NUM_THREADS": "1"}, timeout=120)
+    for r, out in enumerate(outs):
+        assert f"rank {r}: map" in out and "violations []" in out, out
