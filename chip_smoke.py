@@ -183,7 +183,25 @@ Phases, one or more printed lines each, in run order:
    routes, the loss falling on labels that are a fixed function of the
    frames; a 2-layer float32 cut's gradient per group against central
    differences, a zeroed attention gradient rejected; phase 3 holds
-   ``flash_attention`` at its head_dim 80 shape.
+   ``flash_attention`` at its head_dim 80 shape;
+22. sharding (after hubert): qwen3-0.6b at full width laid out by
+   ``sharding.rules.param_specs(fsdp=True)`` as DTensors on a (1, 1)
+   ("data", "model") mesh over an NCCL world of one rank, its caches by
+   ``decode_state_specs``: 8 prompts of 2048 into 4096 slots through
+   ``decode_attention``, 8 decode steps and 2048-token scoring through
+   ``flash_attention`` (each twice, the second timed; the kernels run on
+   the local shards, one launch a layer a call) held against the same
+   weights without a mesh (relative norm 5e-2; bit-equal expected on one
+   rank), and a 4-layer float32 cut at 2e-5; ``run_training(mesh=...)``
+   for 5 steps at 8 x 512 against the unsharded trainer's losses (1e-6
+   relative); the unsharded trainer's checkpoint restored onto the mesh
+   and saved back bit-equal leaf by leaf; two compressed DP steps, mesh
+   form against ``group=`` form, bit-equal; walls and peak beside the
+   unsharded ones; then two dry runs started at the phase's start on the
+   host (fake process groups, no device): qwen3-0.6b ``train_4k`` on the
+   16 x 16 production mesh at 256 fake ranks, its three roofline terms,
+   dominant term and peak, and the (1, 1) cell at phase 17's shape and
+   ``StepConfig`` beside the step measured here (information only).
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -3383,6 +3401,285 @@ def phase_hubert() -> dict:
     return launches
 
 
+#: the (1, 1) dry-run cell of qwen3-0.6b at phase 17's shape and StepConfig,
+#: run in its own process (a fake world of one rank, no device)
+CELL_1X1 = r"""
+import json, sys, time
+import torch.distributed as dist
+from repro_torch.launch.dryrun import init_fake_world
+t0 = time.perf_counter()
+init_fake_world(1)
+from repro_torch.configs import SHAPES, ShapeConfig
+from repro_torch.launch import cells
+from repro_torch.launch.mesh import make_mesh
+batch, seq = int(sys.argv[1]), int(sys.argv[2])
+SHAPES["train_smoke"] = ShapeConfig("train_smoke", "train", seq, batch)
+mesh = make_mesh((1, 1), ("data", "model"))
+cell = cells.CellConfig(remat="none", fsdp=False)
+r = cells.analyze_cell(cells.build_cell("qwen3-0.6b", "train_smoke", mesh, cell=cell),
+                       n_devices=1)
+print(json.dumps({"roofline": r["roofline"], "memory": r["memory"],
+                  "seconds": time.perf_counter() - t0}))
+dist.destroy_process_group()
+"""
+SHARD_DECODE_STEPS = 8
+
+
+def dry_run_procs(tmp: str) -> dict:
+    """Start the two dry runs on the host CPU (no device), each in its own
+    process: the 16 x 16 production mesh at 256 fake ranks, and the (1, 1)
+    cell at phase 17's shape."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    cmds = {"16x16": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                      "qwen3-0.6b", "--shape", "train_4k", "--mesh", "single", "--out", tmp],
+            "1x1": [sys.executable, "-c", CELL_1X1, str(TRAIN["batch"]), str(TRAIN["seq"])]}
+    return {k: (subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env=env, cwd=ROOT), time.perf_counter())
+            for k, c in cmds.items()}
+
+
+def dry_run_result(name: str, proc, t0: float, timeout: float) -> tuple[str, float]:
+    try:
+        out, err = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dry run {name} passed its {timeout:.0f} s limit")
+    if proc.returncode:
+        raise AssertionError(f"dry run {name} exited {proc.returncode}: {err[-3000:]}")
+    return out, time.perf_counter() - t0
+
+
+def phase_sharding() -> dict:
+    """qwen3-0.6b served and trained sharded, on a (1, 1) ("data", "model")
+    mesh over an NCCL world of one rank, against the same weights without a
+    mesh; the dry runs beside it.  Returns the attention launches of the
+    sharded path, counted from zero."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, grad_compress, init_state
+    from repro_torch.sharding import context, layout, rules
+    from repro_torch.train import StepConfig, build_compressed_dp_train_step
+
+    card = card_line()
+    cfg = get_config("qwen3-0.6b")
+    L = cfg.n_layers
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    procs = dry_run_procs(f"{tmp}/dry")
+    torch.cuda.reset_peak_memory_stats()
+
+    # Training without a mesh first (no process group yet): 5 steps from
+    # phase 17's seed, its final checkpoint kept.
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                      global_batch=TRAIN["batch"], seed=0, structure=0.9)
+    loop = train_mod.TrainLoopConfig(steps=5, ckpt_dir=f"{tmp}/plain", ckpt_every=5,
+                                     log_every=0, lr=TRAIN["lr"])
+    plain = train_mod.run_training(cfg, data, loop, device="cuda")
+
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 2048), generator=g, device="cuda")
+    seq = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g, device="cuda")
+
+    def serve(m, mesh):
+        """Prefill 8 x 2048 into 4096 slots, 8 greedy decode steps on the
+        unsharded run's tokens, then 2048-token scoring; logits and walls."""
+        out, walls = [], {}
+        put = (lambda t: t) if mesh is None else (lambda t: layout.distribute(
+            t, mesh, rules.batch_specs({"t": t}, rules.mesh_axes(mesh),
+                                       rules.mesh_shape_of(mesh))["t"]))
+        with torch.no_grad(), context.use_mesh(mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = tf.prefill(m, cfg, {"tokens": put(prompts)}, 4096, use_flash=True)
+            torch.cuda.synchronize()
+            walls["prefill"] = time.perf_counter() - t0
+            out.append(layout.full(logits))
+            t0 = time.perf_counter()
+            feed = list(tokens_fed)  # the unsharded run's greedy tokens, once it has run
+            for i in range(SHARD_DECODE_STEPS):
+                nxt = feed[i] if feed else out[-1][:, -1:].argmax(-1)
+                if not feed:
+                    tokens_fed.append(nxt)
+                logits, state = tf.decode_step(m, cfg, state, {"tokens": put(nxt)},
+                                               use_flash=True)
+                out.append(layout.full(logits))
+            torch.cuda.synchronize()
+            walls["decode"] = (time.perf_counter() - t0) / SHARD_DECODE_STEPS
+            t0 = time.perf_counter()
+            logits, _ = tf.forward(m, cfg, {"tokens": put(seq)}, use_flash=True)
+            torch.cuda.synchronize()
+            walls["score"] = time.perf_counter() - t0
+            out.append(layout.full(logits))
+        del state
+        return out, walls
+
+    tokens_fed: list = []
+    serve(model, None)  # warm-up: the kernels' first calls
+    want, plain_walls = serve(model, None)
+    with nccl_world1():
+        mesh = make_mesh((1, 1), ("data", "model"))
+        axes, mesh_shape = rules.mesh_axes(mesh), rules.mesh_shape_of(mesh)
+        sharded = tf.init_params(cfg, seed=0, device="cuda")
+        specs = rules.param_specs(dict(sharded.named_parameters()), axes, fsdp=True,
+                                  mesh_shape=mesh_shape)
+        layout.shard_module(sharded, mesh, specs)
+        decode_attention.launches = flash_attention.launches = 0
+        serve(sharded, mesh)  # warm-up: DTensor's first sharding propagation of each op
+        got, walls = serve(sharded, mesh)
+        launches = {"decode_attention": decode_attention.launches,
+                    "flash_attention": flash_attention.launches}
+        expect = {"decode_attention": 2 * L * (1 + SHARD_DECODE_STEPS), "flash_attention": 2 * L}
+        if launches != expect:
+            raise AssertionError(f"sharded path launches {launches}, want {expect}")
+        names = ["prefill"] + [f"decode {i}" for i in range(SHARD_DECODE_STEPS)] + ["scoring"]
+        worst = 0.0
+        for name, a, b in zip(names, got, want):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"sharded {name} logits not finite")
+            rel = float((a.float() - b.float()).norm() / b.float().norm())
+            worst = max(worst, rel)
+            if rel > 5e-2:
+                raise AssertionError(f"sharded {name} logits {rel:.3e} from the unsharded "
+                                     f"path's (limit 5e-2)")
+        n_equal = sum(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        log("sharding", f"{cfg.name} on a (1, 1) mesh over NCCL, fsdp param specs, caches "
+            f"by decode_state_specs: prefill 8 x 2048 into 4096 slots, {SHARD_DECODE_STEPS} "
+            f"decode steps, 2048-token scoring (each twice, the second timed); "
+            f"{n_equal}/{len(names)} logits bit-equal to "
+            f"the unsharded path's, worst relative norm {worst:.3e} (limit 5e-2); launches "
+            f"{launches}")
+        log("sharding", f"walls, sharded vs unsharded: prefill {walls['prefill'] * 1e3:.1f} "
+            f"vs {plain_walls['prefill'] * 1e3:.1f} ms, decode {walls['decode'] * 1e3:.3f} vs "
+            f"{plain_walls['decode'] * 1e3:.3f} ms/token, scoring {walls['score'] * 1e3:.1f} "
+            f"vs {plain_walls['score'] * 1e3:.1f} ms; card {card}")
+        del sharded, got, want, model
+
+        # A 4-layer float32 cut through the kernels' float32 route.
+        cut = dataclasses.replace(cfg, n_layers=4, param_dtype="float32",
+                                  compute_dtype="float32")
+        small = prompts[:2, :256]
+        a_model = tf.init_params(cut, seed=0, device="cuda")
+        b_model = tf.init_params(cut, seed=0, device="cuda")
+        layout.shard_module(b_model, mesh, rules.param_specs(
+            dict(b_model.named_parameters()), axes, fsdp=True, mesh_shape=mesh_shape))
+        with torch.no_grad():
+            la, _ = tf.prefill(a_model, cut, {"tokens": small}, 512, use_flash=True,
+                               cache_dtype=torch.float32)
+            with context.use_mesh(mesh):
+                lb, _ = tf.prefill(b_model, cut, {"tokens": layout.distribute(
+                    small, mesh, (("data",), None))}, 512, use_flash=True,
+                    cache_dtype=torch.float32)
+        rel = float((layout.full(lb) - la).norm() / la.norm())
+        log("sharding", f"4-layer float32 cut, prefill 2 x 256 through the kernels: sharded "
+            f"vs unsharded relative norm {rel:.3e} (limit 2e-5)")
+        if rel > 2e-5:
+            raise AssertionError(f"float32 cut {rel:.3e} past 2e-5")
+        del a_model, b_model
+
+        # Training on the mesh: the same 5 steps.
+        t0 = time.perf_counter()
+        out = train_mod.run_training(cfg, data, dataclasses.replace(
+            loop, ckpt_dir=None), device="cuda", mesh=mesh)
+        train_wall = time.perf_counter() - t0
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], plain["losses"]))
+        log("sharding", f"run_training(mesh) 5 steps at {TRAIN['batch']} x {TRAIN['seq']}: "
+            f"losses {', '.join(f'{x:.6f}' for x in out['losses'])}; worst relative "
+            f"difference from the unsharded trainer's {rel:.2e} (limit 1e-6); step ms "
+            f"sharded {np.median(out['step_seconds'][1:]) * 1e3:.1f}, unsharded "
+            f"{np.median(plain['step_seconds'][1:]) * 1e3:.1f}; wall {train_wall:.1f} s")
+        if len(out["losses"]) != 5 or rel > 1e-6:
+            raise AssertionError(f"sharded losses {out['losses']} vs {plain['losses']}")
+
+        # The unsharded trainer's checkpoint restored onto the mesh, saved back.
+        optim_cfg = AdamWConfig(lr=TRAIN["lr"])
+        _, pspec, ospec = train_mod._make_sharded_step(cfg, optim_cfg, StepConfig(), mesh)
+        like_model = tf.Transformer(cfg, device="cuda")
+        like = train_mod.train_state(like_model, init_state(
+            optim_cfg, dict(like_model.named_parameters())))
+        src = CheckpointManager(f"{tmp}/plain")
+        tree, step = src.restore(None, like, device="cuda", mesh=mesh,
+                                 placements=(pspec, ospec))
+        dst = CheckpointManager(f"{tmp}/resharded")
+        dst.save(step, tree)
+        a_dir, b_dir = Path(src._step_dir(step)), Path(dst._step_dir(step))
+        files = sorted(p.name for p in a_dir.glob("arr_*.npy"))
+        def same(f):
+            a, b = np.load(a_dir / f), np.load(b_dir / f)
+            return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+        differ = [f for f in files if not same(f)]
+        log("sharding", f"checkpoint of step {step} restored onto the mesh and saved back: "
+            f"{len(files) - len(differ)}/{len(files)} leaves bit-equal")
+        if differ or not files:
+            raise AssertionError(f"re-sharded checkpoint leaves differ: {differ[:5]}")
+        del tree, like, like_model
+
+        # One compressed data-parallel step, mesh form against group= form.
+        batch = TokenPipeline(data, device="cuda").batch_at(0)
+        results = []
+        for kw in ({"group": None}, {"mesh": mesh, "axis": "data"}):
+            m = tf.init_params(cfg, seed=0, device="cuda")
+            params = dict(m.named_parameters())
+            step_fn = build_compressed_dp_train_step(cfg, optim_cfg, **kw)
+            opt, err, metrics = step_fn(m, init_state(optim_cfg, params),
+                                        grad_compress.init_error_state(params), batch)
+            opt, err, metrics = step_fn(m, opt, err, TokenPipeline(
+                data, device="cuda").batch_at(1))
+            results.append(([p.detach().clone() for p in m.parameters()],
+                            float(metrics["loss"])))
+            del m, params, opt, err
+        same = all(torch.equal(a, b) for a, b in zip(results[0][0], results[1][0]))
+        log("sharding", f"compressed DP steps, mesh form vs group= form: weights "
+            f"{'bit-equal' if same else 'DIFFER'}, losses {results[0][1]:.6f} / "
+            f"{results[1][1]:.6f}")
+        if not same or results[0][1] != results[1][1]:
+            raise AssertionError("the mesh form of the compressed DP step is not bit-equal")
+        del results
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("sharding", f"peak device memory of the phase {peak:.2f} GiB; card {card}")
+
+    # The dry runs, started at the phase's start.
+    out, wall = dry_run_result("16x16", *procs["16x16"], timeout=120)
+    rec = json.loads((Path(tmp) / "dry" / "single_pod_16x16" /
+                      "qwen3-0.6b__train_4k.json").read_text())
+    roof, mem = rec["roofline"], rec["memory"]
+    log("sharding", f"dry run 16 x 16 (256 fake ranks), qwen3-0.6b train_4k: compute "
+        f"{roof['compute_s']:.4f} s, memory {roof['memory_s']:.4f} s, collective "
+        f"{roof['collective_s']:.4f} s, dominant {roof['dominant']}, peak "
+        f"{mem['peak_bytes'] / 2**30:.2f} GiB per device, step (no overlap) "
+        f"{roof['step_time_no_overlap']:.4f} s; collective bytes by kind "
+        f"{roof['collective_bytes_by_kind']}; the cell's dry run {rec['compile_seconds']:.1f} s, "
+        f"joined after {wall:.1f} s")
+    if not (roof["compute_s"] > 0 and roof["dominant"] in ("compute", "memory", "collective")):
+        raise AssertionError(f"dry run 16x16: {roof}")
+    out, wall = dry_run_result("1x1", *procs["1x1"], timeout=120)
+    cell = json.loads(out.strip().splitlines()[-1])
+    log("sharding", f"dry run of the (1, 1) cell at {TRAIN['batch']} x {TRAIN['seq']} "
+        f"(phase 17's shape and StepConfig): step_time_no_overlap "
+        f"{cell['roofline']['step_time_no_overlap'] * 1e3:.1f} ms (compute "
+        f"{cell['roofline']['compute_s'] * 1e3:.1f}, memory "
+        f"{cell['roofline']['memory_s'] * 1e3:.1f}), peak "
+        f"{cell['memory']['peak_bytes'] / 2**30:.2f} GiB; measured on the card: step "
+        f"{np.median(plain['step_seconds'][1:]) * 1e3:.1f} ms (this phase), peak "
+        f"{peak:.2f} GiB; dry run {cell['seconds']:.1f} s, joined after {wall:.1f} s; "
+        f"information only")
+    tmp_dir.cleanup()
+    return launches
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3500,6 +3797,14 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     log("hubert", f"phase wall {time.perf_counter() - t_path:.1f} s")
+
+    # qwen3-0.6b served and trained sharded on a one-rank mesh; its
+    # attention launches counted from zero inside.
+    t_path = time.perf_counter()
+    for name, n in phase_sharding().items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    log("sharding", f"phase wall {time.perf_counter() - t_path:.1f} s")
 
     sources = {"segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce/kernel.py:28"),

@@ -49,8 +49,18 @@ __all__ = ["CheckpointManager"]
 BF16_BITS = np.dtype("V2")
 
 
+def _is_dtensor(leaf) -> bool:
+    if type(leaf) is torch.Tensor or not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):  # the whole array, gathered on every rank
+            leaf = leaf.full_tensor()
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
             return leaf.view(torch.int16).numpy().view(BF16_BITS)
@@ -108,12 +118,43 @@ def _np_dtype(leaf) -> np.dtype:
     return np.asarray(leaf).dtype
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _distribute(tree, placements, mesh):
+    """``tree``'s tensors laid out on ``mesh`` by ``placements`` (same shape)."""
+    if isinstance(tree, dict):
+        return {k: _distribute(v, placements[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_distribute(v, pl, mesh) for v, pl in zip(tree, placements))
+    if placements is None or not isinstance(tree, torch.Tensor):
+        return tree
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.sharding.context import clean_spec
+    from repro_torch.sharding.rules import placements as spec_placements
+
+    return distribute_tensor(tree, mesh, spec_placements(
+        clean_spec(placements, mesh.mesh_dim_names), mesh), src_data_rank=None)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3):
         self.directory = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._sharded_in_flight = False  # the last save_async held DTensors
         self._gc_stale_tmp()
 
     # ------------------------------------------------------------------ io
@@ -146,24 +187,46 @@ class CheckpointManager:
     # ---------------------------------------------------------------- save
 
     def save(self, step: int, tree) -> None:
-        """Synchronous save: copy to host, write, commit."""
+        """Synchronous save: copy to host, write, commit.
+
+        A tree with DTensor leaves is saved whole: every rank gathers (a
+        collective, so every rank calls ``save``), rank 0 writes, and the
+        ranks meet at a barrier after the commit."""
         leaves, paths = _flatten(tree)
-        self._write(step, [_to_host(x) for x in leaves], paths)
+        sharded = any(_is_dtensor(x) for x in leaves)
+        host = [_to_host(x) for x in leaves]
+        if not sharded or _rank() == 0:
+            self._write(step, host, paths)
+        if sharded:
+            _barrier()
 
     def save_async(self, step: int, tree) -> None:
-        """Copy to host now; write on a background thread."""
+        """Copy to host now; write on a background thread (with DTensor
+        leaves: every rank gathers, rank 0 writes, and every rank's next
+        ``wait`` meets the others once the commit is done)."""
         self.wait()  # one save in flight at a time
         leaves, paths = _flatten(tree)
+        sharded = any(_is_dtensor(x) for x in leaves)
         host = [_to_host(x) for x in leaves]
+        self._sharded_in_flight = sharded
+        if sharded and _rank() != 0:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host, paths), daemon=True
         )
         self._thread.start()
 
     def wait(self) -> None:
+        """Until the last ``save_async`` has committed.  After a save of
+        DTensor leaves every rank calls it: the ranks meet at a barrier
+        once rank 0's writer is done, so none reads ``LATEST`` (or a step
+        that rank 0's retention is pruning) before the commit."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded_in_flight:
+            self._sharded_in_flight = False
+            _barrier()
 
     def _write(self, step: int, leaves: list, paths: list) -> None:
         final = self._step_dir(step)
@@ -203,7 +266,7 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- restore
 
-    def restore(self, step: int | None, like=None, device=None):
+    def restore(self, step: int | None, like=None, device=None, mesh=None, placements=None):
         """Load a checkpoint (the latest with ``step=None``): ``(tree,
         step)``.
 
@@ -217,6 +280,12 @@ class CheckpointManager:
 
         Leaves come back as numpy arrays; with ``device`` every numeric
         leaf becomes a tensor on that device (string leaves stay numpy).
+
+        With ``mesh`` and ``placements`` (a tree shaped as the restored one,
+        each leaf a spec of ``sharding.rules``, or None to keep a plain
+        tensor) the leaves are laid out on the current mesh: each rank reads
+        the whole array and keeps its shard, whatever mesh saved it (the
+        reference's ``shardings=``).
         """
         if step is None:
             step = self.latest_step()
@@ -254,6 +323,8 @@ class CheckpointManager:
             tree = _unflatten(like, iter(arrays))
         if device is not None:
             tree = self._place(tree, torch.device(device))
+        if mesh is not None:
+            tree = _distribute(tree, placements, mesh)
         return tree, step
 
     @classmethod

@@ -598,7 +598,7 @@ class EngineOracle:
     ``sharded=True`` (the reference's ``engine-sharded``, a W-worker mesh
     per grant) needs a ``torch.distributed`` process group of W ranks,
     which one process cannot make, so it raises rather than run another
-    mode under that name (ROADMAP.md, queue 1).
+    mode under that name (ROADMAP.md, queue 1 item 10.6).
     """
 
     def __init__(
@@ -610,7 +610,7 @@ class EngineOracle:
             raise NotImplementedError(
                 "EngineOracle(sharded=True) (the engine-sharded oracle) "
                 "needs a torch.distributed process group of W ranks per "
-                "grant; it is not ported yet (ROADMAP.md, queue 1)"
+                "grant; it is not ported yet (ROADMAP.md, queue 1 item 10.6)"
             )
         from repro_torch.device import resolve_device
 

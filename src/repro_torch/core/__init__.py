@@ -1,10 +1,13 @@
 """Core: the paper's profiling -> modeling -> prediction pipeline.
 
 Paper: "On Modeling Dependency between MapReduce Configuration Parameters
-and Total Execution Time" (Rizvandi et al., 2012).  ``costmodel`` and
-``mesh_factorizations`` of the reference belong to the LM stack's slice.
+and Total Execution Time" (Rizvandi et al., 2012).  ``costmodel`` is the
+analytic timer at scale (roofline terms of a dry run on the H100's
+figures), and ``mesh_factorizations`` the mesh-shape configuration space
+the tuner sweeps over it.
 """
 
+from repro_torch.core.costmodel import RooflineReport, roofline_from_counts
 from repro_torch.core.features import (
     FeatureSpec,
     design_matrix,
@@ -26,12 +29,16 @@ from repro_torch.core.regression import (
 from repro_torch.core.tuner import (
     CategoricalTuneResult,
     TuneResult,
+    mesh_factorizations,
     tune,
     tune_categorical,
     validate,
 )
 
 __all__ = [
+    "RooflineReport",
+    "roofline_from_counts",
+    "mesh_factorizations",
     "FeatureSpec",
     "design_matrix",
     "fit_feature_spec",

@@ -164,3 +164,15 @@ def validate(
     result.measured_best_time = float(times[chosen[0]])
     result.true_optimum_time = float(times.min())
     return result
+
+
+def mesh_factorizations(n_devices: int, *, min_axis: int = 1) -> np.ndarray:
+    """All (data, model) integer factorizations of n_devices — the discrete
+    config space whose analogue in the paper is (#mappers, #reducers)."""
+    out = []
+    for data in range(min_axis, n_devices + 1):
+        if n_devices % data == 0:
+            model = n_devices // data
+            if model >= min_axis:
+                out.append((data, model))
+    return np.asarray(out, dtype=np.float64)

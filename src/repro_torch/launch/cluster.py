@@ -13,7 +13,7 @@ scheduler — can ``--load-models`` and skip the bootstrap profiling phase.
 (default ``cuda``) instead of the analytic cost (every distinct config
 builds one plan and pays one warmup run); ``--oracle engine-traced`` runs
 it through the telemetry path.  ``--oracle engine-sharded`` is not ported
-yet and exits with a message naming ROADMAP.md.
+yet and exits with a message naming ROADMAP.md (queue 1 item 10.6).
 ``--overlap-depth 1,2,4`` widens every predictive policy's category grid
 with the pipelined execution mode's overlap depth, so plans carry a
 per-job depth choice (the ``depths`` column histograms what was picked).
@@ -112,7 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "per-phase traces and the online refiner fits "
                          "decomposed per-phase models; 'engine-sharded' "
                          "(a process group of W ranks per grant) is not "
-                         "ported yet and exits (ROADMAP.md, queue 1)")
+                         "ported yet and exits (ROADMAP.md, queue 1 item 10.6)")
     ap.add_argument("--device", default="cuda",
                     help="device the engine oracles run their jobs on "
                          "('cuda' or 'cpu'; asking for the card without "

@@ -22,13 +22,19 @@ Fault tolerance:
 * a step that fails (injected with ``fail_at_step`` or real) triggers a
   restore from the latest checkpoint and a replay; the data pipeline is
   stateless per step, so the replay is exact;
-* a new run in the same ``ckpt_dir`` resumes from ``LATEST``.
+* a new run in the same ``ckpt_dir`` (a new process, possibly on another
+  mesh) resumes from ``LATEST``; a restore, after a failure too, lays each
+  leaf out on the current mesh.
 
-One card, no mesh: the reference's re-sharding onto the current mesh
-waits for ROADMAP.md queue 1, item 10.5 (sharding).  The per-step wall
-times (fenced by ``torch.cuda.synchronize`` on the card) are the profiling
-phase of the paper: ``repro_torch.train_lm`` fits them against the
-microbatch knob.
+On a mesh the weights and the AdamW state are DTensors laid out by
+``sharding.rules.param_specs`` (``_make_sharded_step``) and each batch is
+split over the dp axes.  Without one the default is a ``(1, world)``
+``("data", "model")`` mesh over an initialised process group of more than
+one rank, as in the reference; a process with no group, or a group of one
+rank, runs unsharded (a caller that wants a one-rank mesh passes it).
+The per-step wall times (fenced by ``torch.cuda.synchronize`` on the card)
+are the profiling phase of the paper: ``repro_torch.train_lm`` fits them
+against the microbatch knob.
 """
 
 from __future__ import annotations
@@ -39,13 +45,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ModelConfig, get_config, smoke_config
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
+from repro_torch.sharding import layout, rules
+from repro_torch.sharding.context import use_mesh
 from repro_torch.train import step as step_mod
 
 
@@ -67,18 +77,46 @@ def train_state(model, opt_state: dict) -> tuple:
     return ({n: p.detach() for n, p in model.named_parameters()}, opt_state)
 
 
-def _fresh(cfg, optim_cfg, loop, dev):
+def _make_sharded_step(cfg, optim_cfg, step_cfg, mesh):
+    """(step, parameter specs, AdamW state specs) on ``mesh``: the dp axes
+    are every axis but ``model``; the state mirrors the parameters.  The
+    step splits each batch over the dp axes and runs under the mesh."""
+    axes = rules.mesh_axes(mesh)
+    mesh_shape = rules.mesh_shape_of(mesh)
+    params_like = dict(tf.Transformer(cfg, device="meta").named_parameters())
+    pspec = rules.param_specs(params_like, axes, mesh_shape=mesh_shape)
+    ospec = rules.opt_specs({"master": None} if optim_cfg.master_fp32 else {}, pspec)
+    fn = step_mod.build_train_step(cfg, optim_cfg, step_cfg)
+
+    def step(model, opt_state, batch):
+        with use_mesh(mesh):
+            bspec = rules.batch_specs(batch, axes, mesh_shape)
+            batch = {k: layout.distribute(v, mesh, bspec[k]) for k, v in batch.items()}
+            return fn(model, opt_state, batch)
+
+    return step, pspec, ospec
+
+
+def _fresh(cfg, optim_cfg, loop, dev, mesh=None, pspec=None):
     model = tf.init_params(cfg, seed=loop.seed, device=dev)
-    return model, adamw.init_state(optim_cfg, dict(model.named_parameters()))
+    if mesh is not None:
+        layout.shard_module(model, mesh, pspec)
+    with use_mesh(mesh):
+        return model, adamw.init_state(optim_cfg, dict(model.named_parameters()))
 
 
-def _restore(mgr, model, opt_state, dev):
-    """The latest checkpoint's weights written into ``model``; returns
-    (its AdamW state, its step)."""
-    (params, opt_state), step = mgr.restore(None, train_state(model, opt_state), device=dev)
+def _restore(mgr, model, opt_state, dev, mesh=None, specs=None):
+    """The latest checkpoint's weights written into ``model`` (on a mesh,
+    each leaf re-sharded onto it, whatever mesh saved it); returns (its
+    AdamW state, its step)."""
+    (params, opt_state), step = mgr.restore(None, train_state(model, opt_state), device=dev,
+                                            mesh=mesh, placements=specs)
     with torch.no_grad():
         for n, p in model.named_parameters():
-            p.copy_(params[n])
+            if mesh is None:
+                p.copy_(params[n])
+            else:
+                p.to_local().copy_(params[n].to_local())
     return opt_state, step
 
 
@@ -89,19 +127,28 @@ def run_training(
     step_cfg: step_mod.StepConfig = step_mod.StepConfig(),
     optim_cfg: adamw.AdamWConfig | None = None,
     device="cuda",
+    mesh=None,
 ) -> dict:
     """Returns {"losses": [...], "step_seconds": [...], "last_step": int}."""
     dev = resolve_device(device)
     optim_cfg = optim_cfg or adamw.AdamWConfig(lr=loop.lr)
-    train_step = step_mod.build_train_step(cfg, optim_cfg, step_cfg)
+    if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_mesh((1, dist.get_world_size()), ("data", "model"))
+    specs = pspec = None
+    if mesh is None:
+        train_step = step_mod.build_train_step(cfg, optim_cfg, step_cfg)
+    else:
+        train_step, pspec, ospec = _make_sharded_step(cfg, optim_cfg, step_cfg, mesh)
+        specs = (pspec, ospec)
     pipeline = TokenPipeline(data_cfg, device=dev)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
 
     mgr = CheckpointManager(loop.ckpt_dir, keep=loop.keep) if loop.ckpt_dir else None
-    model, opt_state = _fresh(cfg, optim_cfg, loop, dev)
+    model, opt_state = _fresh(cfg, optim_cfg, loop, dev, mesh, pspec)
     start_step = 0
     if mgr is not None and mgr.latest_step() is not None:
-        opt_state, start_step = _restore(mgr, model, opt_state, dev)
+        # elastic resume: the restore re-shards onto the *current* mesh
+        opt_state, start_step = _restore(mgr, model, opt_state, dev, mesh, specs)
         print(f"[train] resumed from checkpoint at step {start_step}")
 
     losses: list[float] = []
@@ -125,13 +172,14 @@ def run_training(
             print(f"[train] step {step} failed ({e}); restoring from latest checkpoint")
             mgr.wait()
             del model, opt_state
-            model, opt_state = _fresh(cfg, optim_cfg, loop, dev)
+            model, opt_state = _fresh(cfg, optim_cfg, loop, dev, mesh, pspec)
             if mgr.latest_step() is not None:
-                opt_state, step = _restore(mgr, model, opt_state, dev)
+                opt_state, step = _restore(mgr, model, opt_state, dev, mesh, specs)
             else:
                 step = 0
             continue
         dt = time.perf_counter() - t0
+        metrics = {k: layout.full(v) for k, v in metrics.items()}
         losses.append(float(metrics["loss"]))
         times.append(dt)
         step += 1

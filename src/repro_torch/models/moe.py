@@ -22,8 +22,15 @@ leave the token on the residual path.
   once to the compute dtype.  No ``(G, T, E, C)`` tensor is built.
 
 The expert products are plain batched matrix products, as in the
-reference (no Pallas kernel there).  The reference's expert-parallel
-sharding has no counterpart on one card.
+reference (no Pallas kernel there).
+
+On a mesh (DTensor input) the layer runs as the reference's pins lay it
+out, groups on dp and experts on ``model``: DTensor has no sharding
+strategy for the dispatch's index gathers, so the whole expert region is
+one ``local_map`` (the reference's ``shard_map`` counterpart,
+:func:`_moe_sharded`).  Each rank routes its own groups with the whole
+router and runs its own experts; the output is a partial sum over
+``model``, reduced at the region's exit, and the aux a mean over dp.
 """
 
 from __future__ import annotations
@@ -36,6 +43,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import gelu, init_dense, silu
+from repro_torch.sharding.context import (
+    clean_spec,
+    constraint,
+    is_dtensor,
+    local_region,
+    shard_start,
+)
 
 
 def init_moe(cfg, dtype, generator: torch.Generator, device=None) -> dict:
@@ -162,15 +176,17 @@ class Assignment(NamedTuple):
     aux: torch.Tensor
 
 
-def assign(x: torch.Tensor, router: torch.Tensor, cfg) -> Assignment:
+def assign(x: torch.Tensor, router: torch.Tensor, cfg, n_groups: int | None = None) -> Assignment:
     """The grouped dispatch's routing of x (B, S, D): groups, gates, and the
     GShard positions with k-major priority: the choices taken k-major, a
     choice's position is the count of earlier choices of its expert (one
     cumsum along the innermost axis of the (G, E, K T) one-hot: along an
-    outer axis the scan took 45 ms a layer on an H100 at 131072 choices)."""
+    outer axis the scan took 45 ms a layer on an H100 at 131072 choices).
+    ``n_groups`` overrides the config's group count."""
     m = cfg.moe
     B, S, D = x.shape
-    G = m.n_groups if (B * S) % m.n_groups == 0 else 1
+    G = n_groups or m.n_groups
+    G = G if (B * S) % G == 0 else 1
     T = B * S // G
     E, K = m.n_experts, m.top_k
     gates, idx, aux = _route(x.reshape(G, T, D), router, cfg)
@@ -184,16 +200,31 @@ def assign(x: torch.Tensor, router: torch.Tensor, cfg) -> Assignment:
 
 def moe_ffn_grouped(x: torch.Tensor, params: Mapping, cfg, compute_dtype=torch.bfloat16):
     """x (B, S, D) -> (y (B, S, D) in ``compute_dtype``, aux float32)."""
+    if is_dtensor(x):
+        return _moe_sharded(x, params, cfg, compute_dtype)
+    return _moe_grouped(x, params, cfg, compute_dtype)
+
+
+def _moe_grouped(x, params: Mapping, cfg, compute_dtype, n_groups: int | None = None,
+                 first_expert: int = 0):
+    """The grouped dispatch on plain tensors.  ``params``' experts may be a
+    slice, experts ``first_expert`` on: the choices of other experts add
+    nothing (the output is then this slice's part of the sum)."""
     B, S, D = x.shape
-    E = cfg.moe.n_experts
-    a = assign(x, params["router"], cfg)
+    E = params["w_gate"].shape[0]
+    a = assign(x, params["router"], cfg) if n_groups is None else \
+        assign(x, params["router"], cfg, n_groups)
     G, T, cap = a.G, a.T, a.cap
     dev = x.device
     n_slots = G * E * cap
-    # Global slot of each (token, choice): group, expert, position; the
-    # dropped ones point at spare slot n_slots.
+    # Slot of each (token, choice): group, expert, position; the dropped
+    # ones (and another slice's experts) point at spare slot n_slots.
     group = torch.arange(G, device=dev).view(G, 1, 1)
-    slot = torch.where(a.keep, (group * E + a.idx) * cap + a.pos, n_slots)
+    local, mine = a.idx, a.keep
+    if first_expert or E != cfg.moe.n_experts:  # a slice of the experts (on a mesh)
+        local = a.idx - first_expert
+        mine = mine & (local >= 0) & (local < E)
+    slot = torch.where(mine, (group * E + local) * cap + a.pos, n_slots)
     # Each kept slot's token row of x (flattened with a zero row at G T for
     # the slots nobody claimed), gathered into (E, G cap, D).
     rows = (group * T + torch.arange(T, device=dev).view(1, T, 1)).expand_as(slot)
@@ -206,9 +237,56 @@ def moe_ffn_grouped(x: torch.Tensor, params: Mapping, cfg, compute_dtype=torch.b
     yflat = torch.cat([ye.view(E, G, cap, D).transpose(0, 1).reshape(n_slots, D),
                        ye.new_zeros((1, D))])
     picked = yflat.index_select(0, slot.reshape(-1)).view(G, T, -1, D)
-    w = torch.where(a.keep, a.gates, 0.0).to(compute_dtype).float()
+    w = torch.where(mine, a.gates, 0.0).to(compute_dtype).float()
     y = (picked.float() * w[..., None]).sum(2).to(compute_dtype)
     return y.view(B, S, D), a.aux.float()
+
+
+def _moe_sharded(x, params: Mapping, cfg, compute_dtype):
+    """The grouped dispatch on a mesh, as one ``local_map`` region: groups
+    on dp (each rank's batch shard holds whole groups when the groups
+    divide over dp; else the tokens are gathered), experts on ``model``
+    when they divide it (else every rank runs them all).  Each rank's
+    output is its experts' part of the sum, reduced over ``model`` at
+    the exit; the aux is its groups' mean, averaged over dp."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    from repro_torch.sharding.rules import mesh_shape_of, placements
+
+    mesh = x.device_mesh
+    sizes = mesh_shape_of(mesh)
+    dp = clean_spec((("pod", "data"),), mesh.mesh_dim_names)[0] or ()
+    n_dp = 1
+    for axis in dp:
+        n_dp *= sizes[axis]
+    B, S, _ = x.shape
+    G = cfg.moe.n_groups if (B * S) % cfg.moe.n_groups == 0 else 1
+    split = bool(dp) and B % n_dp == 0 and G % n_dp == 0
+    n_model = sizes.get("model", 1)
+    E = cfg.moe.n_experts
+    ep = E % n_model == 0 and n_model > 1
+    first = shard_start(mesh, "model", E) if ep else 0
+    x_spec = (dp if split else None, None, None)
+    w_spec = ("model" if ep else None, None, None)
+    x_pl = placements(x_spec, mesh)
+    y_pl = [Partial() if (ep and name == "model") else pl
+            for name, pl in zip(mesh.mesh_dim_names, x_pl)]
+    # The aux is a mean over the groups, each rank's share a partial sum
+    # (so that its gradient reaches each rank's router copy once).
+    aux_pl = [Partial() if (split and name in dp) or (ep and name == "model") else Replicate()
+              for name in mesh.mesh_dim_names]
+    n_parts = (n_dp if split else 1) * (n_model if ep else 1)
+
+    def body(xl, router, wg, wu, wd):
+        y, aux = _moe_grouped(xl, {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd},
+                              cfg, compute_dtype, n_groups=G // n_dp if split else G,
+                              first_expert=first)
+        return y, aux / n_parts
+
+    y, aux = local_region(
+        body, (x, params["router"], params["w_gate"], params["w_up"], params["w_down"]),
+        (x_spec, (None, None), w_spec, w_spec, w_spec), outs=(y_pl, aux_pl))
+    return constraint(y, ("pod", "data"), None, None), aux
 
 
 __all__ = ["Assignment", "MoE", "assign", "capacity", "init_moe", "moe_ffn", "moe_ffn_grouped",

@@ -32,7 +32,14 @@ carry across them, building the
 does.  A decode step (S = 1) is one recurrence step: the reference pads it
 to a whole chunk of identity steps, which leave the state as it is.  The
 reference's scan is plain ``jnp`` (no Pallas kernel), so this one is torch
-ops.  The reference's sharding pins have no counterpart on one card.
+ops.
+
+On a mesh (DTensor weights and inputs) the recurrences run on each rank's
+local shards (``sharding.context.local_region``, the reference's pins made
+explicit): RWKV's batch on dp and heads on ``model`` where they divide
+(rwkv6-3b's 40 heads do not divide a 16-way axis, so ``u`` stays
+replicated), the WKV6 kernel taking the local shards; Mamba's batch on dp
+and channels on ``model``.
 """
 
 from __future__ import annotations
@@ -41,7 +48,18 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
-from repro_torch.models.layers import dense_weight, rmsnorm, sigmoid, silu
+from repro_torch.models.layers import (
+    dense_weight,
+    grad_as_forward,
+    merge_heads,
+    rmsnorm,
+    sigmoid,
+    silu,
+    split_heads,
+)
+from repro_torch.sharding.context import constraint, is_dtensor, local_region
+
+_DP = ("pod", "data")
 
 #: rank of the decay LoRA (``repro.models.ssm.init_rwkv``)
 LORA = 32
@@ -91,8 +109,11 @@ def rwkv_state_init(cfg, batch: int, dtype=torch.float32, device="cuda") -> dict
 
 
 def _shifted(xc, x_prev):
-    """x_{t-1} for each t: the carried token, then x without its last."""
-    return torch.cat([x_prev.to(xc.dtype)[:, None], xc[:, :-1]], dim=1)
+    """x_{t-1} for each t: the carried token, then x without its last (on a
+    mesh in the hidden layout: the carried token's channels, sharded on
+    ``model`` in the state, are gathered)."""
+    x_prev = constraint(x_prev.to(xc.dtype), _DP, None)
+    return torch.cat([x_prev[:, None], xc[:, :-1]], dim=1)
 
 
 def rwkv_time_mix(x, p: RWKV, cfg, state: dict, chunk: int = 64, *, wkv_kernel: bool = True):
@@ -111,29 +132,37 @@ def rwkv_time_mix(x, p: RWKV, cfg, state: dict, chunk: int = 64, *, wkv_kernel: 
     # convert unrounded (XLA's excess precision): xw's add here, the gate's
     # x * sigmoid(x) below; every earlier op rounds to the compute dtype.
     xw = xc.float() + (dx * mix[4]).float()
-    r = (xr @ p.wr.to(cdt)).reshape(B, S, H, hs)
-    k = (xk @ p.wk.to(cdt)).reshape(B, S, H, hs)
-    v = (xv @ p.wv.to(cdt)).reshape(B, S, H, hs)
+    r = split_heads(xr @ p.wr.to(cdt), H, hs)
+    k = split_heads(xk @ p.wk.to(cdt), H, hs)
+    v = split_heads(xv @ p.wv.to(cdt), H, hs)
     g = xg @ p.wg.to(cdt)
     # data-dependent decay, float32
-    dd = torch.tanh(xw @ p.wA.float()) @ p.wB.float()
-    w = torch.exp(-torch.exp(p.w0.float() + dd)).reshape(B, S, H, hs)
+    dd = torch.tanh(grad_as_forward(xw @ p.wA.float())) @ p.wB.float()
+    w = split_heads(torch.exp(-torch.exp(p.w0.float() + dd)), H, hs)
     u = p.u.float()
 
     if S == 1:
-        S0 = state["S"]
-        r1, k1, v1, w1 = (t[:, 0].float() for t in (r, k, v, w))
-        kv = torch.einsum("bhk,bhv->bhkv", k1, v1)
-        out = torch.einsum("bhk,bhkv->bhv", r1, S0 + u[None, :, :, None] * kv)[:, None]
-        S_new = S0 * w1[..., None] + kv
+        def recurrence(r, k, v, w, u, S0):
+            r1, k1, v1, w1 = (t[:, 0].float() for t in (r, k, v, w))
+            kv = torch.einsum("bhk,bhv->bhkv", k1, v1)
+            out = torch.einsum("bhk,bhkv->bhv", r1, S0 + u[None, :, :, None] * kv)[:, None]
+            return out, S0 * w1[..., None] + kv
     else:
-        recurrence = wkv6 if wkv_kernel else wkv6_chunked_ref
-        out, S_new = recurrence(r, k, v, w, u, chunk=chunk, state=state["S"],
-                                out_dtype=torch.float32)
+        def recurrence(r, k, v, w, u, S0):
+            fn = wkv6 if wkv_kernel else wkv6_chunked_ref
+            return fn(r, k, v, w, u, chunk=chunk, state=S0, out_dtype=torch.float32)
+    heads = (_DP, None, "model", None)
+    out, S_new = local_region(recurrence, (r, k, v, w, u, state["S"]),
+                              (heads, heads, heads, heads, ("model", None),
+                               (_DP, "model", None, None)), outs=(0, 5))
 
-    # per-head norm, then the gate
-    out = rmsnorm(out, p.ln_w, cfg.norm_eps)
-    out = out.reshape(B, S, D) * (g.float() * sigmoid(g).float())
+    # per-head norm, then the gate (on a mesh laid out as the heads, so
+    # that DTensor does not lay the product out along the sequence)
+    out = merge_heads(rmsnorm(out, p.ln_w, cfg.norm_eps))
+    gate = g.float() * sigmoid(g).float()
+    if is_dtensor(out) and tuple(gate.placements) != tuple(out.placements):
+        gate = gate.redistribute(out.device_mesh, out.placements)
+    out = out * gate
     out = out.to(cdt) @ p.wo.to(cdt)
     return out, dict(state, S=S_new, x_prev_tm=x[:, -1].to(state["x_prev_tm"].dtype))
 
@@ -310,7 +339,11 @@ def mamba_block(x, p: Mamba, cfg, state: dict, chunk: int = 256):
     # dt_raw (B, S, 1) is shared, broadcast over the channels
     dt = torch.nn.functional.softplus(dt_raw + p.dt_bias.float())
     A = -torch.exp(p.A_log.float())
-    y, h_S = _selective_scan_chunked(state["h"], dt, dt * xf, A, B_ssm, C_ssm, chunk)
+    chan, seq = (_DP, None, "model"), (_DP, None, None)
+    y, h_S = local_region(
+        lambda h0, dt, dtx, A, Bs, Cs: _selective_scan_chunked(h0, dt, dtx, A, Bs, Cs, chunk),
+        (state["h"], dt, dt * xf, A, B_ssm, C_ssm),
+        ((_DP, "model", None), chan, chan, ("model", None), seq, seq), outs=(1, 0))
     y = y + p.D.float() * xf
     out = (y.to(cdt) * silu(z)) @ p.out_proj.to(cdt)
     conv = xpad[:, xpad.shape[1] - (dconv - 1):] if dconv > 1 else state["conv"]

@@ -66,6 +66,15 @@ from repro_torch.models.ssm import (
     rwkv_state_init,
     rwkv_time_mix,
 )
+from repro_torch.sharding.context import (
+    constraint,
+    current_mesh,
+    is_dtensor,
+    local_placements,
+    local_region,
+    shard_start,
+)
+from repro_torch.sharding.rules import mesh_shape_of
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -87,6 +96,18 @@ def _moe_positions_valid(cfg: ModelConfig) -> None:
             f"{cfg.name}: pattern period {cfg.pattern_period} must be a multiple of "
             f"moe.every_n_layers={cfg.moe.every_n_layers} so MoE placement is "
             f"repeat-invariant (scan requirement)")
+
+
+#: hidden states on a mesh: batch on dp, the rest replicated
+DP_HIDDEN = (("pod", "data"), None, None)
+
+
+def _residual(x, y):
+    """x + y in x's dtype.  On a mesh the sub-block's output (a partial sum
+    over ``model`` after a row-parallel product) is reduced to the hidden
+    layout first, so that the residual stream stays batch-sharded on dp
+    (DTensor would otherwise scatter it along the sequence)."""
+    return x + constraint(y.to(x.dtype), *DP_HIDDEN)
 
 
 class FFN(nn.Module):
@@ -125,12 +146,12 @@ class _FFNBlock(nn.Module):
         cdt = getattr(torch, cfg.compute_dtype)
         h = rmsnorm(x, self.norm2, cfg.norm_eps)
         if self.moe is None:
-            return x + self.ffn(h, cdt).to(x.dtype), None
+            return _residual(x, self.ffn(h, cdt)), None
         y, aux = moe_ffn_grouped(h, dict(self.moe.named_parameters()), cfg, cdt)
         if hasattr(self, "ffn"):
             # The reference's compiled block adds the two branches unrounded.
             y = y.float() + self.ffn(h, cdt).float()
-        return x + y.to(x.dtype), aux
+        return _residual(x, y), aux
 
 
 class Block(_FFNBlock):
@@ -148,7 +169,7 @@ class Block(_FFNBlock):
         h = rmsnorm(x, self.norm1, cfg.norm_eps)
         y, cache = self.attn(h, cache=cache, cache_index=None if cache is None else pos,
                              use_flash=use_flash, cfg=cfg)
-        x, aux = self._ffn(x + y.to(x.dtype), cfg)
+        x, aux = self._ffn(_residual(x, y), cfg)
         return x, cache, aux
 
 
@@ -169,7 +190,7 @@ class MambaBlock(_FFNBlock):
         if state is None:
             state = mamba_state_init(cfg, x.shape[0], device=x.device)
         y, state = mamba_block(rmsnorm(x, self.norm1, cfg.norm_eps), self.mamba, cfg, state)
-        x, aux = self._ffn(x + y.to(x.dtype), cfg)
+        x, aux = self._ffn(_residual(x, y), cfg)
         return x, state, aux
 
 
@@ -194,9 +215,9 @@ class RWKVBlock(nn.Module):
             state = rwkv_state_init(cfg, x.shape[0], device=x.device)
         y, state = rwkv_time_mix(rmsnorm(x, self.norm1, cfg.norm_eps), self.rwkv, cfg, state,
                                  wkv_kernel=wkv_kernel)
-        x = x + y.to(x.dtype)
+        x = _residual(x, y)
         y, state = rwkv_channel_mix(rmsnorm(x, self.norm2, cfg.norm_eps), self.rwkv, cfg, state)
-        return x + y.to(x.dtype), state, None
+        return _residual(x, y), state, None
 
 
 class Transformer(nn.Module):
@@ -250,6 +271,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Transformer:
     return Transformer(cfg, generator=torch.Generator(device=dev).manual_seed(seed))
 
 
+def _embed(tokens, table):
+    """Token embedding.  On a mesh, a lookup on each rank's vocabulary
+    shard (ids outside it give zeros), summed over ``model``: DTensor's
+    own masked partial for a sharded table cannot take a partial gradient
+    back."""
+    if not is_dtensor(table):
+        return F.embedding(tokens.long(), table)
+    from torch.distributed.tensor import Partial
+
+    mesh = table.device_mesh
+    if table.shape[0] % mesh_shape_of(mesh).get("model", 1):
+        return local_region(lambda t, w: F.embedding(t.long(), w), (tokens, table),
+                            (DP_HIDDEN[:2], (None, None)), outs=(0,))
+    first = shard_start(mesh, "model", table.shape[0])
+
+    def lookup(t, w):
+        ids = t.long() - first
+        inside = (ids >= 0) & (ids < w.shape[0])
+        out = F.embedding(torch.where(inside, ids, 0), w)
+        return out * inside[..., None].to(out.dtype)
+
+    tok_pl = local_placements(tokens, mesh, DP_HIDDEN[:2])
+    out_pl = [Partial() if name == "model" else pl
+              for name, pl in zip(mesh.mesh_dim_names, tok_pl)]
+    return local_region(lookup, (tokens, table), (DP_HIDDEN[:2], ("model", None)),
+                        outs=(out_pl,))
+
+
+def _pin_hidden(x):
+    """Hidden states on a mesh: batch on dp, the rest replicated.  The
+    vocab-sharded embedding's partial sum (and the column-parallel
+    ``in_proj``'s shards) are resolved here, once, before any block."""
+    return constraint(x, *DP_HIDDEN)
+
+
 def embed_inputs(model: Transformer, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """The batch -> hidden states (B, S, D): token ids (B, S) embedded in the
     parameter dtype; a VLM's patches (B, n_patches, embed_in_dim) projected
@@ -258,12 +314,12 @@ def embed_inputs(model: Transformer, cfg: ModelConfig, batch: dict) -> torch.Ten
     in the compute dtype."""
     cdt = getattr(torch, cfg.compute_dtype)
     if cfg.family == "vlm":
-        tok = F.embedding(batch["tokens"].long(), model.embed)
-        patches = batch["patches"].to(cdt) @ model.in_proj.to(cdt)
+        tok = _pin_hidden(_embed(batch["tokens"], model.embed))
+        patches = _pin_hidden(batch["patches"].to(cdt) @ model.in_proj.to(cdt))
         return torch.cat([patches.to(tok.dtype), tok], dim=1)
     if cfg.input_kind == "embeddings":
-        return batch["embeds"].to(cdt) @ model.in_proj.to(cdt)
-    return F.embedding(batch["tokens"].long(), model.embed)
+        return _pin_hidden(batch["embeds"].to(cdt) @ model.in_proj.to(cdt))
+    return _pin_hidden(_embed(batch["tokens"], model.embed))
 
 
 def input_shape(cfg: ModelConfig, batch: dict) -> tuple[int, int]:
@@ -423,11 +479,31 @@ def decode_step(model: Transformer, cfg: ModelConfig, state: DecodeState, batch:
     return logits, state
 
 
+def init_sharded_decode_state(cfg: ModelConfig, batch: int, max_len: int, mesh,
+                              cache_dtype=torch.bfloat16, device="cuda") -> DecodeState:
+    """``init_decode_state`` laid out on ``mesh`` by the reference's
+    ``decode_state_specs`` (caches: batch on dp, kv heads on ``model``, or
+    the sequence where the heads do not divide); each rank makes only its
+    own shards."""
+    from repro_torch.sharding import layout, rules
+
+    like = init_decode_state(cfg, batch, max_len, cache_dtype, device="meta")
+    specs = rules.decode_state_specs(like.layers, rules.mesh_axes(mesh),
+                                     rules.mesh_shape_of(mesh))
+    return DecodeState(layout.zeros_state(like.layers, mesh, specs, resolve_device(device)))
+
+
 def prefill(model: Transformer, cfg: ModelConfig, batch: dict, max_len: int, *,
             use_flash=False, cache_dtype=torch.bfloat16):
-    """Process the whole prompt: (last-token logits (B, 1, V), filled state)."""
+    """Process the whole prompt: (last-token logits (B, 1, V), filled state).
+    Under an ambient mesh the state is ``init_sharded_decode_state``'s."""
     B, _ = input_shape(cfg, batch)
-    state = init_decode_state(cfg, B, max_len, cache_dtype, model.final_norm.device)
+    dev = model.final_norm.device
+    mesh = current_mesh()
+    if mesh is None:
+        state = init_decode_state(cfg, B, max_len, cache_dtype, dev)
+    else:
+        state = init_sharded_decode_state(cfg, B, max_len, mesh, cache_dtype, dev)
     logits, state = decode_step(model, cfg, state, batch, use_flash=use_flash)
     return logits[:, -1:], state
 
@@ -435,5 +511,5 @@ def prefill(model: Transformer, cfg: ModelConfig, batch: dict, max_len: int, *,
 __all__ = [
     "Transformer", "Block", "MambaBlock", "RWKVBlock", "FFN", "DecodeState", "check_supported", "init_params",
     "embed_inputs", "input_shape", "unembed", "forward", "loss_fn", "init_decode_state",
-    "decode_step", "prefill",
+    "decode_step", "prefill", "init_sharded_decode_state",
 ]

@@ -35,13 +35,18 @@ class AdamWConfig:
 
 
 def init_state(cfg: AdamWConfig, params: dict) -> dict:
-    """{"step": int32 0, "m": zeros, "v": zeros[, "master": float32 copy]}."""
+    """{"step": int32 0, "m": zeros, "v": zeros[, "master": float32 copy]};
+    ``m``, ``v`` and ``master`` take each parameter's layout (a DTensor
+    parameter's placements, as the reference's ``_opt_specs`` mirror the
+    parameter specs)."""
     sdt = getattr(torch, cfg.state_dtype)
     device = next(iter(params.values())).device
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": {n: torch.zeros(p.shape, dtype=sdt, device=p.device) for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=sdt, device=p.device) for n, p in params.items()},
+        "m": {n: torch.zeros_like(p, dtype=sdt, memory_format=torch.contiguous_format)
+              for n, p in params.items()},
+        "v": {n: torch.zeros_like(p, dtype=sdt, memory_format=torch.contiguous_format)
+              for n, p in params.items()},
     }
     if cfg.master_fp32:
         state["master"] = {n: p.detach().to(torch.float32, copy=True)
@@ -50,10 +55,41 @@ def init_state(cfg: AdamWConfig, params: dict) -> dict:
 
 
 def _norm(tensors: list) -> torch.Tensor:
-    """sqrt of the sum of squares of float32 tensors."""
+    """sqrt of the sum of squares of float32 tensors.
+
+    DTensors take the same fused per-tensor norm on their local shards
+    (a partial sum reduced first), the squares summed over the mesh
+    dimensions that shard each; the result is
+    a plain tensor, the same on every rank (and bit-equal to the plain
+    path's on a one-rank mesh, where DTensor's own ``_foreach_norm``
+    reduces in another order on the card)."""
     if not tensors:
         return torch.zeros(())
-    return torch.stack(torch._foreach_norm(tensors)).square().sum().sqrt()
+    if not _is_dtensor(tensors[0]):
+        return torch.stack(torch._foreach_norm(tensors)).square().sum().sqrt()
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    tensors = [t.redistribute(t.device_mesh, [Replicate() if pl.is_partial() else pl
+                                              for pl in t.placements])
+               if any(pl.is_partial() for pl in t.placements) else t for t in tensors]
+    norms = torch._foreach_norm([t.to_local() for t in tensors])
+    squares = []
+    for n, t in zip(norms, tensors):
+        sq = n.square()
+        if any(pl.is_shard() for pl in t.placements):
+            sq = DTensor.from_local(sq, t.device_mesh, [
+                Partial() if pl.is_shard() else Replicate() for pl in t.placements],
+                run_check=False).full_tensor()
+        squares.append(sq)
+    return torch.stack(squares).sum().sqrt()
+
+
+def _is_dtensor(t) -> bool:
+    if type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
 
 
 @torch.no_grad()
@@ -66,11 +102,46 @@ def global_norm(tree: dict) -> torch.Tensor:
 def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: dict, lr_scale=1.0):
     """One AdamW step.  Returns (new params, new state, metrics); the
     inputs are left as they were.  ``metrics`` holds the pre-clip
-    ``grad_norm`` and the ``lr`` applied, as float32 tensors."""
+    ``grad_norm`` and the ``lr`` applied, as float32 tensors.
+
+    With DTensor parameters every gradient and state tensor is laid out as
+    its parameter, the norm taken across the shards, and the elementwise
+    update runs on the local shards (the same fused ops as without a mesh;
+    DTensor's own strategies for ``_foreach`` ops cost more host time than
+    the step on a three-axis mesh); the results carry the parameters'
+    placements."""
+    names = list(params)
+    if not _is_dtensor(params[names[0]]):
+        return _update(cfg, params, grads, state, lr_scale,
+                       _norm([grads[n].float() for n in names]))
+    from torch.distributed.tensor import DTensor
+
+    def like(t, p):
+        if tuple(t.placements) != tuple(p.placements):
+            t = t.redistribute(p.device_mesh, p.placements)
+        return t
+
+    grads = {n: like(grads[n], params[n]) for n in names}
+    gnorm = _norm([grads[n].float() for n in names])
+    trees = {k: state[k] for k in ("m", "v", "master") if k in state}
+    local = lambda tree: {n: like(tree[n], params[n]).to_local() for n in names}
+    new, new_state, metrics = _update(
+        cfg, local(params), local(grads),
+        {"step": state["step"], **{k: local(t) for k, t in trees.items()}}, lr_scale, gnorm)
+
+    def wrap(tree):
+        return {n: DTensor.from_local(tree[n], params[n].device_mesh, params[n].placements,
+                                      run_check=False, shape=params[n].shape,
+                                      stride=params[n].stride()) for n in names}
+
+    return wrap(new), {k: (v if k == "step" else wrap(v)) for k, v in new_state.items()}, metrics
+
+
+def _update(cfg: AdamWConfig, params: dict, grads: dict, state: dict, lr_scale, gnorm):
+    """``apply_updates`` on plain tensors, given the gradients' norm."""
     names = list(params)
     step = state["step"] + 1
     g = [grads[n].float() for n in names]
-    gnorm = _norm(g)
     if cfg.grad_clip:
         g = torch._foreach_mul(g, torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0))
     sdt = getattr(torch, cfg.state_dtype)

@@ -8,9 +8,14 @@ through its plain paths: its Pallas kernels have no gradient, so the port's
 kernels have no backward.  The serving and scoring steps run without
 autograd and may take the kernels (``use_flash=True``).
 
-There is no mesh yet (ROADMAP.md queue 1, item 10.5: sharding): the
-compressed data-parallel step runs on a ``torch.distributed`` process
-group with the parameters replicated.
+Distribution is DTensor's: a model whose parameters are DTensors laid
+out by ``repro_torch.sharding.rules.param_specs`` (FSDP included) trains
+through the same steps, under ``sharding.context.use_mesh``; the
+optimizer lays each gradient out as its parameter (ZeRO's reduce-scatter)
+and its state mirrors the parameters' placements.  The compressed
+data-parallel step is the explicit form: parameters replicated, the
+batch split over one mesh axis (or a process group), int8 error-feedback
+gradients summed across it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw, grad_compress
+from repro_torch.sharding.context import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +38,10 @@ class StepConfig:
     microbatch: int = 1            # gradient-accumulation chunks
     use_flash: bool = False        # attention through the hand-written kernels
     cache_dtype: str = "bfloat16"  # KV cache dtype
+    # The reference unrolls its layer scan and its microbatch scan for the
+    # dry run's flop accounting; the port's layers and microbatches are
+    # Python loops, always unrolled, so the knob changes no result.
+    unroll_layers: bool = False
 
 
 def _train_loss(cfg: ModelConfig, step_cfg: StepConfig):
@@ -50,14 +60,21 @@ def _train_loss(cfg: ModelConfig, step_cfg: StepConfig):
 
 
 def _apply(optim_cfg, model, grads: dict, opt_state: dict):
-    """AdamW at the schedule's scale, written into the model's weights."""
+    """AdamW at the schedule's scale, written into the model's weights (a
+    DTensor parameter through its local shard: ``apply_updates`` returns
+    each new weight laid out as its parameter)."""
     params = dict(model.named_parameters())
     lr_scale = adamw.cosine_schedule(opt_state["step"])
     new, opt_state, metrics = adamw.apply_updates(
         optim_cfg, {n: p.detach() for n, p in params.items()}, grads, opt_state, lr_scale)
     with torch.no_grad():
-        torch._foreach_copy_(list(params.values()), [new[n] for n in params])
+        torch._foreach_copy_([_local(p) for p in params.values()],
+                             [_local(new[n]) for n in params])
     return opt_state, metrics
+
+
+def _local(t):
+    return t.to_local() if is_dtensor(t) else t
 
 
 def build_train_step(cfg: ModelConfig, optim_cfg: adamw.AdamWConfig,
@@ -142,20 +159,28 @@ def build_decode_step(cfg: ModelConfig, step_cfg: StepConfig = StepConfig()):
 
 
 def build_compressed_dp_train_step(cfg: ModelConfig, optim_cfg: adamw.AdamWConfig,
-                                   group=None, step_cfg: StepConfig = StepConfig()):
+                                   group=None, step_cfg: StepConfig = StepConfig(), *,
+                                   mesh=None, axis: str = "data"):
     """Data-parallel train step with int8 error-feedback gradient compression.
 
     Returns ``(model, opt_state, err_state, batch) -> (opt_state, err_state,
-    metrics)``: each rank of ``group`` (the default group when None) holds
-    the whole model and its slice of the batch, takes its gradients, sums
-    them across the ranks through ``grad_compress.psum_compressed`` and
-    divides by the world size; the loss is the ranks' mean.  The weights
-    are updated in place, the same on every rank.  ``err_state`` starts as
+    metrics)``: each rank of ``group`` (the default group when None), or of
+    ``mesh``'s ``axis`` (the reference's form), holds the whole model and
+    its slice of the batch (a DTensor batch sharded on ``axis`` gives its
+    local shard), takes its gradients, sums them across the ranks through
+    ``grad_compress.psum_compressed`` and divides by the world size; the
+    loss is the ranks' mean.  The weights are updated in place, the same on
+    every rank.  ``err_state`` starts as
     ``grad_compress.init_error_state(dict(model.named_parameters()))``.
     """
     loss_of = _train_loss(cfg, step_cfg)
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("pass a group or a mesh, not both")
+        group = mesh.get_group(axis)
 
     def step(model, opt_state, err_state, batch):
+        batch = {k: _local(v) for k, v in batch.items()}
         names, leaves = zip(*model.named_parameters())
         loss = loss_of(model, batch)
         grads = dict(zip(names, torch.autograd.grad(loss, leaves)))

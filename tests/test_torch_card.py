@@ -577,3 +577,51 @@ def test_vlm_and_encoder_kernel_paths_on_card_match_cpu(arch, heads):
         got, _ = tf.decode_step(card, cfg, states[1], {k: v.cuda() for k, v in step.items()},
                                 use_flash=True)
         close(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_prefill_on_nccl_world1_equals_unsharded(tmp_path):
+    """qwen3-0.6b's smoke config laid out by ``param_specs(fsdp=True)`` on a
+    (1, 1) ("data", "model") mesh over an NCCL world of one rank, its cache
+    by ``decode_state_specs``: the prefill through ``decode_attention`` (one
+    launch a layer, on the local shards) equals the unsharded prefill's
+    logits bit for bit, and a decode step too."""
+    _needs_card()
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import context, layout, rules
+
+    cfg = smoke_config("qwen3-0.6b")
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)).cuda()
+    model = tf.init_params(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        want, state = tf.prefill(model, cfg, {"tokens": tokens[:, :40]}, 64, use_flash=True)
+        want2, _ = tf.decode_step(model, cfg, state, {"tokens": tokens[:, 40:41]}, use_flash=True)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        sharded = tf.init_params(cfg, seed=0, device="cuda")
+        layout.shard_module(sharded, mesh, rules.param_specs(
+            dict(sharded.named_parameters()), rules.mesh_axes(mesh), fsdp=True,
+            mesh_shape=rules.mesh_shape_of(mesh)))
+        put = lambda t: layout.distribute(t, mesh, (("data",), None))
+        launches = decode_attention.launches
+        with torch.no_grad(), context.use_mesh(mesh):
+            got, state = tf.prefill(sharded, cfg, {"tokens": put(tokens[:, :40])}, 64,
+                                    use_flash=True)
+            got2, _ = tf.decode_step(sharded, cfg, state, {"tokens": put(tokens[:, 40:41])},
+                                     use_flash=True)
+            got, got2 = layout.full(got), layout.full(got2)
+        torch.cuda.synchronize()
+        assert decode_attention.launches - launches == 2 * cfg.n_layers
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)
+    assert torch.equal(got2, want2)
