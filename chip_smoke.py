@@ -83,11 +83,17 @@ Phases, one or more printed lines each, in run order:
    predict-elastic on an ``ElasticCluster`` (7 jobs of 2**22-2**24
    tokens), which must regrant on measured snapshot walls; then the
    cluster CLI once in-process (``--oracle engine-traced``, 8 jobs, its
-   span trace).  Every job completes or is rejected, fifo-static
-   completes all, every trace conserves with its configuration's phases,
-   and the ``segment_reduce`` / ``local_reduce`` launches equal what the
-   oracle's ``cuda`` runs must make (one a reduce wave or step, one a
-   combiner job, warmups included); per policy the makespan, mean
+   span trace); then the engine-sharded arm: ``EngineOracle(sharded=True,
+   traced=True)`` on one NCCL rank in a process of its own on card 0, 4
+   jobs of 2**22-2**24 tokens under fifo-static on ``cuda`` and
+   predict-sjf (backends ``torch`` and ``cuda``, worker grid (1,)), every
+   job complete with map, shuffle and reduce walls above 0, a grant of 2
+   refused naming the one visible card.  Every job completes or is
+   rejected, fifo-static completes all, every trace conserves with its
+   configuration's phases, and the ``segment_reduce`` / ``local_reduce``
+   launches (the rank process's included) equal what the oracles'
+   ``cuda`` runs must make (one a reduce wave or step, one a combiner
+   job, warmups included); per policy the makespan, mean
    turnaround, SLO attainment, the share of ``cuda`` plans and the online
    prediction error beside the paper's 5 %, as information; phases 7-12
    each count their launches from zero;
@@ -201,7 +207,13 @@ Phases, one or more printed lines each, in run order:
    host (fake process groups, no device): qwen3-0.6b ``train_4k`` on the
    16 x 16 production mesh at 256 fake ranks, its three roofline terms,
    dominant term and peak, and the (1, 1) cell at phase 17's shape and
-   ``StepConfig`` beside the step measured here (information only).
+   ``StepConfig`` beside the step measured here (information only);
+23. examples: the port's examples in-process at their smallest flags
+   (``mapreduce_wordcount`` plain and with ``--combiner --phase-times``,
+   ``phase_breakdown``, ``cluster_sim --real``, ``elastic_preempt``,
+   ``serve_lm``), each checking its own result, with its wall and its
+   launches; ``segment_reduce``, ``local_reduce``, ``decode_attention``
+   and ``flash_attention`` must each launch.
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -977,6 +989,11 @@ CLUSTER_SIZES = (1 << 22, 1 << 26)
 BOOTSTRAP_SIZES = (1 << 22, 1 << 24, 1 << 26)
 ELASTIC_JOBS, ELASTIC_WORKERS = 7, 8
 ELASTIC_SIZES = (1 << 22, 1 << 24)
+#: the engine-sharded arm: SHARDED_JOBS jobs over SHARDED_SIZES on one
+#: rank process (NCCL, card 0); predict-sjf bootstraps on SHARDED_GRIDS at
+#: the same sizes (24 configurations: its cubic fit needs 19)
+SHARDED_JOBS, SHARDED_SIZES = 4, (1 << 22, 1 << 24)
+SHARDED_GRIDS = dict(mapper_grid=(8, 16, 24, 32), reducer_grid=(4, 8, 16), worker_grid=(1,))
 #: what the elastic arm's regrant cost model believes a snapshot and a
 #: restore cost before its first measurement: small beside the jobs'
 #: few milliseconds, so the first rescue passes its gate; each regrant is
@@ -1056,6 +1073,66 @@ def policy_line(tag: str, result, wall: float) -> str:
             f"{wall:.1f} s on the host")
 
 
+def sharded_arm(want: dict) -> dict:
+    """The engine-sharded arm of the cluster phase: ``EngineOracle(sharded=True,
+    traced=True)``, whose grant of one worker is one rank process of its own
+    (NCCL on card 0), schedules SHARDED_JOBS jobs under fifo-static on
+    ``cuda`` and predict-sjf (backends torch and cuda, worker grid (1,)).
+    Every job completes, every trace has map, shuffle and reduce walls above
+    0 and conserves; a grant of 2 raises naming the one visible card.  Adds
+    the launches the rank's ``cuda`` runs must make to ``want`` (R
+    segment_reduce a run at W = 1, warmups included) and returns the
+    launches the rank process counted."""
+    from repro_torch.cluster import Cluster, EngineOracle, generate_workload, get_policy
+
+    jobs = generate_workload(SHARDED_JOBS, seed=8, mean_interarrival=0.05,
+                             size_range=SHARDED_SIZES)
+    with EngineOracle(sharded=True, traced=True, size_quantum=1 << 20, device="cuda") as oracle:
+        time_, seen = oracle.time, set()
+
+        def timed(app, backend, size, M, R, W, job_id=0, depth=1, combiner=False):
+            t = time_(app, backend, size, M, R, W, job_id=job_id, depth=depth, combiner=combiner)
+            key = (app, oracle._snap(size), backend, M, R, W, combiner)
+            runs = 1 + oracle.warmup * (key not in seen)
+            seen.add(key)
+            if backend == "cuda":
+                want["segment_reduce"] += runs * math.ceil(R / W)
+                want["local_reduce"] += runs * int(combiner)
+            return t
+
+        oracle.time = timed
+        for name, kw in (("fifo-static", {"backend": "cuda", "mappers": 20, "reducers": 5,
+                                          "workers": 1}),
+                         ("predict-sjf", {"backends": ("torch", "cuda"), "seed": 0,
+                                          "bootstrap_sizes": SHARDED_SIZES, **SHARDED_GRIDS})):
+            t0 = time.perf_counter()
+            result = Cluster(1, oracle).run(jobs, get_policy(name, **kw))
+            wall = time.perf_counter() - t0
+            check_records(f"engine-sharded {name}", result, len(jobs))
+            if result.metrics()["n_completed"] != len(jobs):
+                raise AssertionError(f"engine-sharded {name} left jobs: {result.metrics()}")
+            for r in result.records:
+                times = r.trace.phase_times()
+                if min(times[p] for p in ("map", "shuffle", "reduce")) <= 0:
+                    raise AssertionError(f"engine-sharded {name} job {r.spec.job_id}: {times}")
+            log("cluster", policy_line(f"engine-sharded {name}", result, wall)
+                + "; phase walls (ms) " + "; ".join(
+                    "/".join(f"{r.trace.phase_times()[p] * 1e3:.2f}"
+                             for p in ("map", "shuffle", "reduce"))
+                    for r in result.records))
+        try:
+            oracle.time("wordcount", "cuda", SHARDED_SIZES[0], 20, 5, 2)
+        except ValueError as e:
+            if "needs 2 devices but only 1 " not in str(e):
+                raise
+            log("cluster", f"engine-sharded grant 2 refused: {e}")
+        else:
+            raise AssertionError("engine-sharded grant 2 ran on one card")
+        made = dict(oracle.rank_launches)
+    log("cluster", f"engine-sharded rank launches {made} (wanted {want} so far in the phase)")
+    return made
+
+
 def phase_cluster() -> dict:
     """The predictive scheduler on the live engine, on the card.
 
@@ -1071,7 +1148,9 @@ def phase_cluster() -> dict:
     snapshot walls; then the CLI once, in-process, with its own oracle
     (fifo-static on torch, so it launches no kernel).  Every job completes
     or is rejected, fifo-static completes all, every trace conserves.
-    Returns the launches the oracle's cuda runs must have made."""
+    Then the engine-sharded arm (``sharded_arm``).  Returns the launches
+    the oracles' cuda runs must have made, and those the rank process
+    made."""
     import dataclasses as dc
     import tempfile
 
@@ -1154,11 +1233,12 @@ def phase_cluster() -> dict:
     log("cluster", f"CLI --oracle engine-traced --jobs 8 --policies fifo-static: 8 completed, "
         f"span trace with one job span a job, makespan {m['makespan_s'] * 1e3:.1f} ms; "
         f"{wall:.1f} s on the host")
+    ranks = sharded_arm(want)
     log("cluster", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"launches wanted {want}")
-    if min(want.values()) < 1:
-        raise AssertionError(f"the cluster path planned no cuda work: {want}")
-    return want
+    if min(want.values()) < 1 or ranks["segment_reduce"] < 1:
+        raise AssertionError(f"the cluster path planned no cuda work: {want}, ranks {ranks}")
+    return want, ranks
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
@@ -3680,6 +3760,56 @@ def phase_sharding() -> dict:
     return launches
 
 
+#: the [examples] phase: each example's module, its smallest flags, and
+#: what its printed lines that the phase repeats begin with
+EXAMPLE_RUNS = (("mapreduce_wordcount", [], ("execution time",)),
+                ("mapreduce_wordcount", ["--combiner", "--phase-times"],
+                 ("execution time", "phase walls")),
+                ("phase_breakdown", [], ("  composed (sum", "  monolithic")),
+                ("cluster_sim", ["--real"], ("fifo-static", "predict-")),
+                ("elastic_preempt", [], ("[elastic] snapshot", "[elastic] regrant")),
+                ("serve_lm", [], ("decode vs", "predicted")))
+
+
+def phase_examples() -> dict:
+    """The port's examples, in-process on the card at their smallest flags
+    (EXAMPLE_RUNS): each must run to its end (each checks its own result:
+    the word count's total, the snapshot's bit-identical resume, serving's
+    decode against its teacher-forced forward at 2e-2, the model
+    database's round trip).  Each one's kernel launches and wall are
+    printed with its chosen lines; the four kernels of the MapReduce and
+    serving paths must each launch.  Returns the launches by kernel."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.local_reduce import local_reduce
+    from repro_torch.kernels.segment_reduce import segment_reduce
+
+    kernels = {"segment_reduce": segment_reduce, "local_reduce": local_reduce,
+               "decode_attention": decode_attention, "flash_attention": flash_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    for name, argv, shown in EXAMPLE_RUNS:
+        main = importlib.import_module(f"repro_torch.{name}").main
+        before = {k: fn.launches for k, fn in kernels.items()}
+        out, t0 = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main(argv)
+        wall = time.perf_counter() - t0
+        made = {k: fn.launches - before[k] for k, fn in kernels.items() if fn.launches > before[k]}
+        lines = " | ".join(line.strip() for line in out.getvalue().splitlines()
+                           if line.startswith(shown))
+        log("examples", f"python -m repro_torch.{name} {' '.join(argv)}: {wall:.1f} s, "
+            f"launches {made}; {lines}")
+    total = {k: fn.launches for k, fn in kernels.items()}
+    if min(total.values()) < 1:
+        raise AssertionError(f"the examples left a kernel unlaunched: {total}")
+    return total
+
+
 def card_line() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3744,8 +3874,11 @@ def main() -> int:
         local_reduce.launches = 0
         t_path = time.perf_counter()
         want = drive()
-        made = {"segment_reduce": segment_reduce.launches,
-                "local_reduce": local_reduce.launches}
+        # A path that runs jobs in rank processes returns their launches too.
+        want, ranks = want if isinstance(want, tuple) else (want, {})
+        made = {name: fn.launches + ranks.get(name, 0)
+                for name, fn in (("segment_reduce", segment_reduce),
+                                 ("local_reduce", local_reduce))}
         if made != want:
             raise AssertionError(f"{path} path launches {made}, want {want}")
         log("launches", f"{path} path: segment_reduce {made['segment_reduce']}, local_reduce "
@@ -3805,6 +3938,13 @@ def main() -> int:
         launches[name] += n
     torch.cuda.empty_cache()
     log("sharding", f"phase wall {time.perf_counter() - t_path:.1f} s")
+
+    # The examples, each kernel counted from zero inside.
+    t_path = time.perf_counter()
+    for name, n in phase_examples().items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    log("examples", f"phase wall {time.perf_counter() - t_path:.1f} s")
 
     sources = {"segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce/kernel.py:28"),

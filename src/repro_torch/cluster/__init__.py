@@ -19,9 +19,9 @@ make smarter decisions; this package is that scheduler.  Layering:
                   with a name registry
     online.py   — continuous profiling: completed jobs refit the models
 
-Entry point: ``python -m repro_torch.launch.cluster`` (CLI).  The
-reference's ``cluster`` benchmark section and its walkthrough example are
-not ported yet.
+Entry points: ``python -m repro_torch.launch.cluster`` (CLI) and the
+walkthrough ``python -m repro_torch.cluster_sim``.  The reference's
+``cluster`` benchmark section is not ported yet.
 
 The port names the reduce backends ``torch`` / ``scatter_reduce`` /
 ``cuda`` where the reference names them ``jnp`` / ``xla`` / ``pallas``

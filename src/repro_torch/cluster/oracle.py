@@ -16,7 +16,9 @@ so two interchangeable time sources implement one interface
 * :class:`EngineOracle` — wall-clocks the port's
   :class:`repro_torch.mapreduce.ExecutionPlan` on the live engine (plans
   cached, one warmup), fenced by ``torch.cuda.synchronize`` on the card,
-  for traces where the simulated cluster IS the real engine.
+  for traces where the simulated cluster IS the real engine; with
+  ``sharded=True`` each grant W runs the sharded mode on a world of W rank
+  processes (:mod:`repro_torch.mapreduce.ranks`).
 
 Backends carry the port's names (``torch``, ``scatter_reduce``, ``cuda``
 for the reference's ``jnp``, ``xla``, ``pallas``); the analytic oracle keeps
@@ -595,10 +597,17 @@ class EngineOracle:
     the traced mode — so the scheduled path and the priced path can never
     drift.  Each wall ends in ``torch.cuda.synchronize`` on the card.
 
-    ``sharded=True`` (the reference's ``engine-sharded``, a W-worker mesh
-    per grant) needs a ``torch.distributed`` process group of W ranks,
-    which one process cannot make, so it raises rather than run another
-    mode under that name (ROADMAP.md, queue 1 item 10.6).
+    ``sharded=True`` (platform ``engine-sharded``) schedules the sharded
+    mode: each grant W runs on a :class:`repro_torch.mapreduce.ranks.RankWorld`
+    of W rank processes on ``device`` (NCCL, rank r on card r; gloo on the
+    CPU), started the first time W is asked for and kept until
+    :meth:`close`.  A grant above the visible devices raises
+    ``ValueError``; a rank that fails raises here.  ``time`` returns the
+    largest rank's wall (the pipe's round trip to the ranks is outside
+    it), and with ``traced=True`` rank 0's per-phase trace lands in
+    ``recorder``.  ``remaining_segments`` and ``regrant_overhead`` step
+    the one-worker resumable job in this process in both modes, as the
+    reference's do.
     """
 
     def __init__(
@@ -606,23 +615,23 @@ class EngineOracle:
         traced: bool = False, sharded: bool = False,
         pipelined: bool = False, device="cuda",
     ):
-        if sharded:
-            raise NotImplementedError(
-                "EngineOracle(sharded=True) (the engine-sharded oracle) "
-                "needs a torch.distributed process group of W ranks per "
-                "grant; it is not ported yet (ROADMAP.md, queue 1 item 10.6)"
-            )
         from repro_torch.device import resolve_device
 
         self.device = resolve_device(device)
         self.warmup = warmup
         self.size_quantum = size_quantum
+        self.sharded = bool(sharded)
         #: with pipelined=True, ``time(..., depth=D)`` with D > 1
         #: wall-clocks the plan's pipelined mode — the knob a depth-aware
         #: predictive policy profiles and chooses per job.  Off by
         #: default so depth requests can't silently hit the fused path.
         self.pipelined = bool(pipelined)
-        self.platform = "engine-wallclock"
+        if self.pipelined and self.sharded:
+            raise ValueError(
+                "pipelined=True is a single-controller mode; it does not "
+                "compose with sharded=True"
+            )
+        self.platform = "engine-sharded" if sharded else "engine-wallclock"
         #: with traced=True, jobs run through the phase-split telemetry
         #: path: every execution appends a JobTrace to ``recorder`` and
         #: ``take_trace`` exposes the latest to the cluster, so completed
@@ -649,6 +658,37 @@ class EngineOracle:
         self._traced_jobs: dict = {}
         self._warmed: set = set()   # (resumable id, grant) stepper warmups
         self._overheads: dict = {}  # measured (save_s, restore_s) cache
+        self._worlds: dict = {}     # grant -> RankWorld (sharded mode)
+        #: kernel launches the rank processes made (sharded mode)
+        self.rank_launches = {"segment_reduce": 0, "local_reduce": 0}
+
+    def close(self) -> None:
+        """End the rank processes of the sharded mode (idempotent)."""
+        for world in self._worlds.values():
+            world.close()
+        self._worlds.clear()
+
+    def __enter__(self) -> "EngineOracle":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _run_sharded(self, app, backend, size, mappers, reducers, workers,
+                     traced: bool, combiner: bool = False):
+        """One job on the world of ``workers`` ranks -> its RankReply."""
+        from repro_torch.mapreduce.ranks import RankRequest, RankWorld
+
+        W = int(workers)
+        if W not in self._worlds:
+            self._worlds[W] = RankWorld(W, self.device)
+        reply = self._worlds[W].run(RankRequest(
+            app, int(size), backend, int(mappers), int(reducers),
+            combiner=bool(combiner), traced=bool(traced), warmup=int(self.warmup),
+        ))
+        for name, n in reply.launches.items():
+            self.rank_launches[name] += n
+        return reply
 
     def backends(self) -> tuple[str, ...]:
         """The counterparts of the reference's default arms (jnp, xla);
@@ -666,17 +706,9 @@ class EngineOracle:
     def _corpus(self, app: str, size: int):
         key = (app, size)
         if key not in self._corpora:
-            from repro_torch.mapreduce import exim_mainlog, eximparse, \
-                wordcount, wordcount_corpus
+            from repro_torch.runner import make_app
 
-            if app == "wordcount":
-                mr_app = wordcount(4096)
-                tokens = wordcount_corpus(size, vocab_size=4096)
-            elif app == "eximparse":
-                mr_app = eximparse(1024)
-                tokens = exim_mainlog(size, n_transactions=1024)
-            else:
-                raise ValueError(f"unknown app {app!r}")
+            mr_app, tokens = make_app(app, size)
             self._corpora[key] = (
                 mr_app, torch.as_tensor(tokens, device=self.device)
             )
@@ -745,6 +777,12 @@ class EngineOracle:
             raise ValueError(
                 "depth > 1 requires EngineOracle(pipelined=True)"
             )
+        if self.sharded:
+            reply = self._run_sharded(app, backend, self._snap(size), mappers,
+                                      reducers, workers, self.traced, combiner)
+            if reply.trace is not None:
+                self.recorder.add(reply.trace)
+            return reply.wall_s
         job, corpus = self._get_job(
             app, backend, self._snap(size), mappers, reducers, workers,
             int(depth), combiner=bool(combiner),
@@ -782,9 +820,14 @@ class EngineOracle:
                       combiner=bool(combiner))
             return self._profile_from(self.recorder.last)
 
+        size = self._snap(size)
+        if self.sharded:
+            return self._profile_from(self._run_sharded(
+                app, backend, size, mappers, reducers, workers, True,
+                combiner).trace)
+
         from repro_torch.telemetry import PhaseRecorder
 
-        size = self._snap(size)
         key = (app, size, backend, int(mappers), int(reducers),
                int(workers), bool(combiner))
         if key not in self._traced_jobs:

@@ -87,12 +87,14 @@ def _mesh_axes(mesh) -> rules.MeshAxes:
 
 
 def build_cell(arch: str, shape_name: str, mesh, *,
-               cell: CellConfig | None = None, cfg: ModelConfig | None = None):
+               cell: CellConfig | None = None, cfg: ModelConfig | None = None,
+               shape: ShapeConfig | None = None):
     """Build one dry-run cell: a dict with ``run`` (the step, to call under
     ``fake_mode``), ``fake_mode`` (its :class:`OpCounter`), ``args`` (the step's inputs: DTensors on
-    fake shards) and ``meta``."""
+    fake shards) and ``meta``.  ``shape`` (default ``SHAPES[shape_name]``)
+    is the input shape, for a caller that cuts one to size."""
     cfg = cfg or get_config(arch)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
     cell = cell or default_cell_config(cfg, shape)
     cfg = _apply_overrides(cfg, cell, mesh)
     axes = _mesh_axes(mesh)
@@ -375,13 +377,14 @@ def analyze_cell(built, *, n_devices: int, mesh=None):
     }
 
 
-def _probes(arch, shape_name, mesh, cell, cfg):
+def _probes(arch, shape_name, mesh, cell, cfg, shape):
     """Raw costs (and the second's peak) of the 1- and 2-period builds."""
     probe_cell = dataclasses.replace(cell, unroll_layers=True)
     probes, peak = [], 0
     for depth_groups in (1, 2):
         cfg_p = dataclasses.replace(cfg, n_layers=depth_groups * cfg.pattern_period)
-        counts = _count(build_cell(arch, shape_name, mesh, cell=probe_cell, cfg=cfg_p))
+        counts = _count(build_cell(arch, shape_name, mesh, cell=probe_cell, cfg=cfg_p,
+                                   shape=shape))
         probes.append(_raw_costs(counts))
         peak = counts["peak_bytes"]
     return probes, peak
@@ -397,7 +400,7 @@ def estimate_step_time(arch: str, shape_name: str, mesh, *,
     shape = SHAPES[shape_name]
     cell = cell or default_cell_config(cfg, shape)
     n_rep = cfg.n_groups_of_layers
-    (p1, p2), peak = _probes(arch, shape_name, mesh, cell, cfg)
+    (p1, p2), peak = _probes(arch, shape_name, mesh, cell, cfg, shape)
     tot = {k: p1[k] + (n_rep - 1) * (p2[k] - p1[k])
            for k in ("flops", "bytes", "collective_bytes")}
     compute_s = tot["flops"] / costmodel.PEAK_FLOPS_BF16
@@ -414,7 +417,8 @@ def estimate_step_time(arch: str, shape_name: str, mesh, *,
 
 def analyze_cell_extrapolated(arch: str, shape_name: str, mesh, *,
                               cell: CellConfig | None = None,
-                              cfg: ModelConfig | None = None):
+                              cfg: ModelConfig | None = None,
+                              shape: ShapeConfig | None = None):
     """Depth-exact roofline of one cell.
 
     The reference compiles two shallow unrolled probes (1 and 2 periods)
@@ -422,15 +426,16 @@ def analyze_cell_extrapolated(arch: str, shape_name: str, mesh, *,
     layers are a Python loop, so the full-depth run's counts are exact and
     are the report; the two shallow probes still give
     ``probe_group_cost`` (one period's cost), as in the reference.
+    ``shape`` as in :func:`build_cell`.
     """
     cfg = cfg or get_config(arch)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
     cell = cell or default_cell_config(cfg, shape)
     n_devices = mesh.size()
 
-    built_full = build_cell(arch, shape_name, mesh, cell=cell, cfg=cfg)
+    built_full = build_cell(arch, shape_name, mesh, cell=cell, cfg=cfg, shape=shape)
     counts = _count(built_full)
-    (p1, p2), _ = _probes(arch, shape_name, mesh, cell, cfg)
+    (p1, p2), _ = _probes(arch, shape_name, mesh, cell, cfg, shape)
     model_flops = built_full["meta"]["model_flops"]
     report = costmodel.roofline_from_counts(
         counts["flops"], counts["bytes"], counts["collectives"], counts["peak_bytes"],

@@ -12,8 +12,10 @@ scheduler — can ``--load-models`` and skip the bootstrap profiling phase.
 ``--oracle engine`` wall-clocks the live MapReduce engine on ``--device``
 (default ``cuda``) instead of the analytic cost (every distinct config
 builds one plan and pays one warmup run); ``--oracle engine-traced`` runs
-it through the telemetry path.  ``--oracle engine-sharded`` is not ported
-yet and exits with a message naming ROADMAP.md (queue 1 item 10.6).
+it through the telemetry path.  ``--oracle engine-sharded`` runs each
+grant W traced on a world of W rank processes (NCCL, one card a rank; gloo
+with ``--device cpu``), so jobs carry per-phase walls measured on the
+sharded path; a grant above the visible devices raises.
 ``--overlap-depth 1,2,4`` widens every predictive policy's category grid
 with the pipelined execution mode's overlap depth, so plans carry a
 per-job depth choice (the ``depths`` column histograms what was picked).
@@ -111,8 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "through the telemetry path: completed jobs carry "
                          "per-phase traces and the online refiner fits "
                          "decomposed per-phase models; 'engine-sharded' "
-                         "(a process group of W ranks per grant) is not "
-                         "ported yet and exits (ROADMAP.md, queue 1 item 10.6)")
+                         "runs each grant W on W rank processes, so "
+                         "per-phase times come from the sharded engine")
     ap.add_argument("--device", default="cuda",
                     help="device the engine oracles run their jobs on "
                          "('cuda' or 'cpu'; asking for the card without "
@@ -523,14 +525,11 @@ def main(argv=None) -> None:
                 "--overlap-depth > 1 is a single-controller schedule; "
                 "it does not compose with --oracle engine-sharded"
             )
-        try:
-            oracle = EngineOracle(
-                traced=args.oracle in ("engine-traced", "engine-sharded"),
-                sharded=args.oracle == "engine-sharded",
-                pipelined=deep, device=args.device,
-            )
-        except NotImplementedError as e:
-            raise SystemExit(f"--oracle {args.oracle}: {e}") from e
+        oracle = EngineOracle(
+            traced=args.oracle in ("engine-traced", "engine-sharded"),
+            sharded=args.oracle == "engine-sharded",
+            pipelined=deep, device=args.device,
+        )
         log.info(
             "engine_oracle",
             msg="note: the engine oracle builds a plan and pays a warmup "
@@ -541,10 +540,18 @@ def main(argv=None) -> None:
     else:
         oracle = AnalyticOracle(noise=args.noise, seed=args.seed)
 
-    if args.service:
-        _run_service(args, oracle, log)
-        return
+    try:
+        if args.service:
+            _run_service(args, oracle, log)
+        else:
+            _run_trace(args, oracle, log, depth_grid)
+    finally:
+        if isinstance(oracle, EngineOracle):
+            oracle.close()  # the engine-sharded oracle's rank processes
 
+
+def _run_trace(args, oracle, log, depth_grid) -> None:
+    """Drain one generated trace under each named policy."""
     jobs = generate_workload(
         args.jobs, seed=args.seed, arrival=args.arrival,
         mean_interarrival=args.mean_interarrival,

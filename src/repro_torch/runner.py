@@ -34,7 +34,7 @@ def make_app(name: str, tokens: int, seed: int = 0):
     if name == "eximparse":
         corpus = exim_mainlog(tokens, n_transactions=1024, seed=seed)
         return eximparse(1024), corpus
-    raise ValueError(name)
+    raise ValueError(f"unknown app {name!r}")
 
 
 class JobRunner:

@@ -380,7 +380,12 @@ class PhaseRecorder:
     def start_job(self, app_name: str, cfg, input_len: int) -> JobTrace:
         config = dataclasses.asdict(cfg)
         config["input_len"] = int(input_len)
-        trace = JobTrace(app=app_name, config=config)
+        return self.add(JobTrace(app=app_name, config=config))
+
+    def add(self, trace: JobTrace) -> JobTrace:
+        """Append ``trace`` (one started here, or one recorded in another
+        process and read back with :meth:`JobTrace.from_json`), keeping
+        ``max_traces``."""
         self.traces.append(trace)
         if self.max_traces is not None and len(self.traces) > self.max_traces:
             del self.traces[: len(self.traces) - self.max_traces]

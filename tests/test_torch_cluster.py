@@ -278,14 +278,6 @@ def test_cli_loads_models_the_reference_saved(tmp_path):
         ref["predict-sjf"]["n_completed"]
 
 
-def test_cli_engine_sharded_exits_naming_roadmap():
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        plaunch.main(["--device", "cpu", "--oracle", "engine-sharded",
-                      "--jobs", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pc.EngineOracle(sharded=True, device="cpu")
-
-
 def test_cli_engine_traced_on_cpu(tmp_path):
     """The live engine through the CLI, with its span trace: tiny jobs."""
     out_json, trace = tmp_path / "m.json", tmp_path / "t.json"
