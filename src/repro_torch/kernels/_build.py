@@ -11,6 +11,7 @@ output.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -144,6 +145,21 @@ def check_rows(name: str, keys: torch.Tensor, values: torch.Tensor) -> None:
         raise ValueError(f"{name}: keys and values must be contiguous")
     if keys.shape[0] > MAX_ROWS or keys.shape[1] >= 2**31:
         raise ValueError(f"{name}: shape {tuple(keys.shape)} is too large")
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def launch_range(name: str):
+    """``repro_torch::<name>``, a host operation around a kernel's ctypes
+    launch while a ``torch.profiler`` records; a shared ``nullcontext``
+    otherwise.  The profiler ties a device kernel to the host operation
+    open at its launch, never to a ``record_function`` range, and a ctypes
+    call is no operation: without this range the kernel's device time
+    belongs to none of the ranges around it."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_RANGE
+    return torch._C._profiler._RecordFunctionFast(f"repro_torch::{name}")
 
 
 def raise_on_error(lib: ctypes.CDLL, name: str, code: int) -> None:

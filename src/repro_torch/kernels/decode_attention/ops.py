@@ -85,7 +85,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         rows = n_splits * B * Hq * Sq
         part_acc = torch.empty((rows, PART_WIDTH), dtype=torch.float32, device=q.device)
         part_ml = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _build.launch_range("decode_attention"):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),

@@ -73,7 +73,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk, n_kv = k.shape[1], k.shape[2]
     scale = sm_scale if sm_scale is not None else hd**-0.5
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(q.device), _build.launch_range("flash_attention"):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -36,7 +36,7 @@ def local_reduce(keys: torch.Tensor, values: torch.Tensor):
         n_rows * lib.local_reduce_tiles(n_cols), dtype=torch.int32,
         device=keys.device,
     )
-    with torch.cuda.device(keys.device):
+    with torch.cuda.device(keys.device), _build.launch_range("local_reduce"):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.local_reduce_launch(
             keys.data_ptr(), values.data_ptr(), out_k.data_ptr(),

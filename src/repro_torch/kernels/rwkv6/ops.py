@@ -69,7 +69,7 @@ def wkv6(r, k, v, w, u, *, chunk: int = DEFAULT_CHUNK, state=None, out_dtype=Non
     s_out = torch.empty((B, H, hs, hs), dtype=torch.float32, device=r.device)
     states = torch.empty((B, H, -(-T // KERNEL_CHUNK), hs, hs), dtype=torch.float32,
                          device=r.device)
-    with torch.cuda.device(r.device):
+    with torch.cuda.device(r.device), _build.launch_range("wkv6"):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.wkv6_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),

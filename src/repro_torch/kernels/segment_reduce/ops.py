@@ -31,7 +31,7 @@ def segment_reduce(keys: torch.Tensor, values: torch.Tensor):
     out_k = torch.empty_like(keys)
     out_v = torch.zeros_like(values)
     n_rows, n_cols = keys.shape
-    with torch.cuda.device(keys.device):
+    with torch.cuda.device(keys.device), _build.launch_range("segment_reduce"):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.segment_reduce_launch(
             keys.data_ptr(), values.data_ptr(), out_k.data_ptr(),

@@ -5,6 +5,8 @@ the execution plan and its modes, and the paper's two applications.
     backends.py — swappable shuffle/reduce strategies + registries
     plan.py     — ExecutionPlan: per-grant wave steppers; fused, pipelined,
                   traced, sharded and resumable modes
+    spans.py    — named profiler ranges inside a job (phase, wave, shuffle
+                  step), opened only while a profiler records
     engine.py   — JobConfig/MapReduceApp + build_job / build_job_sharded
     apps.py     — WordCount and Exim mainlog parsing
     datagen.py  — synthetic corpora (same RNG draws as the reference)

@@ -32,6 +32,7 @@ from repro_torch.mapreduce.phases import (
     bucket_scatter,
     hash_to_reducer,
 )
+from repro_torch.mapreduce.spans import span
 
 
 class ReduceBackend:
@@ -176,19 +177,24 @@ class LexsortShuffle(ShuffleBackend):
     name = "lexsort"
 
     def partition(self, cfg, keys, values, pvalid):
-        """keys/values/pvalid: flat (n,).  Returns (part_keys, part_vals,
-        dropped) with partitions of shape (reduce_waves * W, cap)."""
+        """keys/values/pvalid: (n,), or task rows read as one flat (n,)
+        stream.  Returns (part_keys, part_vals, dropped) with partitions
+        of shape (reduce_waves * W, cap)."""
         R, W = cfg.num_reducers, cfg.num_workers
-        n = keys.shape[0]
-        rid = hash_to_reducer(keys, R)
-        rid = torch.where(pvalid, rid, R)  # invalid pairs -> OOB dump row
-        order = _stable_order(rid, keys)  # reducer first, then key
-        skeys, svals, srid = keys[order], values[order], rid[order]
-        cap = phases.partition_capacity(n, R, cfg.capacity_factor)
+        with span("mapreduce.shuffle.sort"):
+            # Combined task rows are column slices: flattening them copies.
+            keys, values, pvalid = (a.reshape(-1) for a in (keys, values, pvalid))
+            rid = hash_to_reducer(keys, R)
+            rid = torch.where(pvalid, rid, R)  # invalid pairs -> OOB dump row
+            order = _stable_order(rid, keys)  # reducer first, then key
+        with span("mapreduce.shuffle.gather"):
+            skeys, svals, srid = keys[order], values[order], rid[order]
+        cap = phases.partition_capacity(keys.shape[0], R, cfg.capacity_factor)
         R_pad = cfg.reduce_waves * W
-        (part_keys, part_vals), dropped = bucket_scatter(
-            srid, R, R_pad, cap, (skeys, svals), (PAD_KEY, 0)
-        )
+        with span("mapreduce.shuffle.scatter"):
+            (part_keys, part_vals), dropped = bucket_scatter(
+                srid, R, R_pad, cap, (skeys, svals), (PAD_KEY, 0)
+            )
         return part_keys, part_vals, dropped
 
 
@@ -216,15 +222,17 @@ class AllToAllShuffle(ShuffleBackend):
         n_local = keys.shape[-1]
         # Per (src, dst) capacity: uniform share x safety factor.
         shuf_cap = phases.partition_capacity(n_local, W, cfg.capacity_factor)
-        rid = torch.where(pvalid, hash_to_reducer(keys, R), R)
-        dst = torch.where(pvalid, rid % W, W)
-        # Destination, then reducer, then key: dst = rid % W for live pairs
-        # and (W, R) for dead ones, so dst * (R + 1) + rid orders both.
-        order = _stable_order(dst.to(torch.int64) * (R + 1) + rid, keys)
-        k, v, rid, dst = (a.gather(-1, order) for a in (keys, values, rid, dst))
-        (send_k, send_v, send_r), send_dropped = bucket_scatter(
-            dst, W, W, shuf_cap, (k, v, rid), (PAD_KEY, 0, R)
-        )
+        with span("mapreduce.shuffle.pack"):
+            rid = torch.where(pvalid, hash_to_reducer(keys, R), R)
+            dst = torch.where(pvalid, rid % W, W)
+            # Destination, then reducer, then key: dst = rid % W for live
+            # pairs and (W, R) for dead ones, so dst * (R + 1) + rid orders
+            # both.
+            order = _stable_order(dst.to(torch.int64) * (R + 1) + rid, keys)
+            k, v, rid, dst = (a.gather(-1, order) for a in (keys, values, rid, dst))
+            (send_k, send_v, send_r), send_dropped = bucket_scatter(
+                dst, W, W, shuf_cap, (k, v, rid), (PAD_KEY, 0, R)
+            )
         return (send_k, send_v, send_r), send_dropped
 
     def unpack(self, cfg, n_local, rk, rv, rr):
@@ -235,12 +243,13 @@ class AllToAllShuffle(ShuffleBackend):
         (B, reduce_waves, red_cap) buckets and (B,) overflow counts."""
         R, W, waves_r = cfg.num_reducers, cfg.num_workers, cfg.reduce_waves
         red_cap = phases.partition_capacity(W * n_local, R, cfg.capacity_factor)
-        lslot = torch.where(rr < R, rr // W, waves_r)
-        order = _stable_order(lslot, rk)
-        rk, rv, lslot = (a.gather(-1, order) for a in (rk, rv, lslot))
-        (bk, bv), recv_dropped = bucket_scatter(
-            lslot, waves_r, waves_r, red_cap, (rk, rv), (PAD_KEY, 0)
-        )
+        with span("mapreduce.shuffle.unpack"):
+            lslot = torch.where(rr < R, rr // W, waves_r)
+            order = _stable_order(lslot, rk)
+            rk, rv, lslot = (a.gather(-1, order) for a in (rk, rv, lslot))
+            (bk, bv), recv_dropped = bucket_scatter(
+                lslot, waves_r, waves_r, red_cap, (rk, rv), (PAD_KEY, 0)
+            )
         return (bk, bv), recv_dropped
 
     @staticmethod
@@ -275,10 +284,12 @@ class AllToAllShuffle(ShuffleBackend):
         (send_k, send_v, send_r), send_dropped = self.pack(
             cfg, keys[None], values[None], pvalid[None]
         )
-        width = self.live_width(cfg, send_r, group)
-        send = torch.stack([s[0, :, :width] for s in (send_k, send_v, send_r)], dim=1)
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=group)
+        with span("mapreduce.shuffle.exchange"):
+            width = self.live_width(cfg, send_r, group)
+            send = torch.stack([s[0, :, :width] for s in (send_k, send_v, send_r)],
+                               dim=1)
+            recv = torch.empty_like(send)
+            dist.all_to_all_single(recv, send, group=group)
         (bk, bv), recv_dropped = self.unpack(
             cfg, n_local,
             *(recv[:, i].reshape(1, -1) for i in range(3)),

@@ -21,6 +21,8 @@ import math
 
 import torch
 
+from repro_torch.mapreduce.spans import span
+
 PAD_KEY = 2**31 - 1  # int32 max: sorts to the end
 INT32_MIN = -(2**31)
 
@@ -124,12 +126,13 @@ def run_map_task(app, cfg, tokens, valid):
     setup = task_setup(cfg.setup_dim, cfg.setup_rounds, tokens.sum(dim=1))
     keys, values, pvalid = app.map_fn(tokens, valid)
     # Local spill sort; stable like jnp.argsort, which ``first`` relies on.
-    _, order = torch.sort(
-        torch.where(pvalid, keys, PAD_KEY), dim=1, stable=True
-    )
-    keys = keys.gather(1, order)
-    values = values.gather(1, order)
-    pvalid = pvalid.gather(1, order)
+    with span("mapreduce.map.spill_sort"):
+        _, order = torch.sort(
+            torch.where(pvalid, keys, PAD_KEY), dim=1, stable=True
+        )
+        keys = keys.gather(1, order)
+        values = values.gather(1, order)
+        pvalid = pvalid.gather(1, order)
     values = values + setup.to(values.dtype)[:, None]  # keep setup live
     return keys, values, pvalid
 
@@ -140,7 +143,10 @@ def map_phase(app, cfg, splits, split_valid):
     splits/split_valid: (waves, W, S).  Returns keys/values/valid of shape
     (waves, W, P).
     """
-    outs = [run_map_task(app, cfg, t, m) for t, m in zip(splits, split_valid)]
+    outs = []
+    for i, (t, m) in enumerate(zip(splits, split_valid)):
+        with span("mapreduce.map.wave", i):
+            outs.append(run_map_task(app, cfg, t, m))
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
@@ -228,7 +234,8 @@ def reduce_local(app, cfg, part_keys, part_vals, backend):
     same shape.
     """
     outs = []
-    for k, v in zip(part_keys, part_vals):
-        ok, ov = backend.reduce(k[None], v[None], app.reduce_op)
-        outs.append((ok[0], _masked_setup(cfg, k[None], ok, ov)[0]))
+    for i, (k, v) in enumerate(zip(part_keys, part_vals)):
+        with span("mapreduce.reduce.wave", i):
+            ok, ov = backend.reduce(k[None], v[None], app.reduce_op)
+            outs.append((ok[0], _masked_setup(cfg, k[None], ok, ov)[0]))
     return tuple(torch.stack(x) for x in zip(*outs))

@@ -63,6 +63,7 @@ from repro_torch.device import resolve_device
 from repro_torch.mapreduce import backends as _backends
 from repro_torch.mapreduce import phases
 from repro_torch.mapreduce.phases import PAD_KEY, run_map_task
+from repro_torch.mapreduce.spans import span
 
 __all__ = ["ExecutionPlan"]
 
@@ -91,6 +92,17 @@ def _fenced(dev: torch.device, fn, *args):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return out, time.perf_counter() - t0, time.process_time() - c0
+
+
+def _spanned(name: str, fn):
+    """``fn`` inside a :func:`~repro_torch.mapreduce.spans.span` of
+    ``name``."""
+
+    def run(*args):
+        with span(name):
+            return fn(*args)
+
+    return run
 
 
 def _window(start: int, rows: int, W: int) -> int:
@@ -319,9 +331,7 @@ class ExecutionPlan:
         shuffle = self.shuffle
 
         def step(bk, bv, bp):
-            return shuffle.partition(
-                cfg_w1, bk.reshape(-1), bv.reshape(-1), bp.reshape(-1)
-            )
+            return shuffle.partition(cfg_w1, bk, bv, bp)
 
         return step
 
@@ -354,8 +364,10 @@ class ExecutionPlan:
             # all_to_all: worker w's received row j is worker j's send row
             # w, a block transpose of the (W, W, width) send blocks cut to
             # their longest live prefix.
-            width = shuffle.live_width(cfg_w, send[2])
-            recv = (s[..., :width].transpose(0, 1).reshape(W, -1) for s in send)
+            with span("mapreduce.shuffle.exchange"):
+                width = shuffle.live_width(cfg_w, send[2])
+                recv = tuple(s[..., :width].transpose(0, 1).reshape(W, -1)
+                             for s in send)
             (bk2, bv2), rdrop = shuffle.unpack(cfg_w, n_local, *recv)
             # (W, waves_r, cap) -> reducer-indexed (R, cap): reducer r
             # lives on worker r % W at local slot r // W.
@@ -397,20 +409,23 @@ class ExecutionPlan:
 
     @staticmethod
     def _software_pipeline(compute, commit, groups: int, stride: int,
-                           init_bufs):
+                           init_bufs, wave: str):
         """Prologue / steady state / epilogue over ``groups`` wave groups.
 
         Iteration g of the steady state commits group g-1's block and
         computes group g's; the commit order (0, 1, ..., G-1) and every
         clamped window are the serial loop's, so the outputs are bit-exact.
+        The prologue and each iteration lie in a ``wave`` span.
         """
 
         def run(*inputs):
             bufs = init_bufs()
-            blk = compute(*inputs, 0)
+            with span(wave, 0):
+                blk = compute(*inputs, 0)
             for g in range(1, groups):
-                bufs = commit(bufs, blk, (g - 1) * stride)
-                blk = compute(*inputs, g * stride)
+                with span(wave, g):
+                    bufs = commit(bufs, blk, (g - 1) * stride)
+                    blk = compute(*inputs, g * stride)
             return commit(bufs, blk, (groups - 1) * stride)
 
         return run
@@ -431,22 +446,26 @@ class ExecutionPlan:
         init_red = self.initial_reduce_buffers
 
         def phase_map(tokens):
-            splits, valid = prep(tokens)
-            bufs = init_map(fill=False)
-            for i in range(map_waves):
-                bufs = map_step(splits, valid, *bufs, i * W)
-            return bufs
+            with span("mapreduce.map"):
+                splits, valid = prep(tokens)
+                bufs = init_map(fill=False)
+                for i in range(map_waves):
+                    with span("mapreduce.map.wave", i):
+                        bufs = map_step(splits, valid, *bufs, i * W)
+                return bufs
 
         def phase_reduce(pk, pv):
-            bufs = init_red(pk.shape[1], fill=False)
-            for i in range(red_waves):
-                bufs = reduce_step(pk, pv, *bufs, i * W)
-            return bufs
+            with span("mapreduce.reduce"):
+                bufs = init_red(pk.shape[1], fill=False)
+                for i in range(red_waves):
+                    with span("mapreduce.reduce.wave", i):
+                        bufs = reduce_step(pk, pv, *bufs, i * W)
+                return bufs
 
         fns = {"map": phase_map}
         if self.combiner:
-            fns["combine"] = self._combine_step_fn()
-        fns["shuffle"] = shuffle_step
+            fns["combine"] = _spanned("mapreduce.combine", self._combine_step_fn())
+        fns["shuffle"] = _spanned("mapreduce.shuffle", shuffle_step)
         fns["reduce"] = phase_reduce
         return fns
 
@@ -469,7 +488,7 @@ class ExecutionPlan:
         map_pipe = self._software_pipeline(
             self._map_compute_fn(Weff_m), self._map_commit_fn(Weff_m),
             math.ceil(self.M / Weff_m), Weff_m,
-            lambda: self.initial_map_buffers(fill=False),
+            lambda: self.initial_map_buffers(fill=False), "mapreduce.map.wave",
         )
         red_compute = self._reduce_compute_fn(Weff_r)
         red_commit = self._reduce_commit_fn(Weff_r)
@@ -477,21 +496,26 @@ class ExecutionPlan:
         init_red = self.initial_reduce_buffers
 
         def phase_map(tokens):
-            return map_pipe(*prep(tokens))
+            with span("mapreduce.map"):
+                return map_pipe(*prep(tokens))
 
         def phase_reduce(pk, pv):
-            pipe = self._software_pipeline(
-                red_compute, red_commit, groups_r, Weff_r,
-                lambda: init_red(pk.shape[1], fill=False),
-            )
-            return pipe(pk, pv)
+            with span("mapreduce.reduce"):
+                pipe = self._software_pipeline(
+                    red_compute, red_commit, groups_r, Weff_r,
+                    lambda: init_red(pk.shape[1], fill=False),
+                    "mapreduce.reduce.wave",
+                )
+                return pipe(pk, pv)
 
         fns = {"map": phase_map}
         if self.combiner:
             # Pure per-row work on the committed map buffers, ahead of the
             # shuffle barrier: no commit state of its own.
-            fns["combine"] = self._combine_step_fn()
-        fns["shuffle"] = self._partition_fn(W if self.shuffle.collective else 1)
+            fns["combine"] = _spanned("mapreduce.combine", self._combine_step_fn())
+        fns["shuffle"] = _spanned(
+            "mapreduce.shuffle",
+            self._partition_fn(W if self.shuffle.collective else 1))
         fns["reduce"] = phase_reduce
         return fns
 
@@ -544,15 +568,21 @@ class ExecutionPlan:
 
     # ---------------------------------------------------------------- modes
 
+    def _span_args(self, workers: int | None = None) -> str:
+        """The ``mapreduce.job`` span's args: the setting of the job."""
+        W = self.cfg.num_workers if workers is None else int(workers)
+        return f"app={self.app.name} M={self.M} R={self.R} W={W}"
+
     @staticmethod
-    def _compose(fns: dict):
+    def _compose(fns: dict, args: str):
         def job(tokens):
-            bufs = fns["map"](tokens)
-            if "combine" in fns:
-                bufs = fns["combine"](*bufs)
-            pk, pv, dropped = fns["shuffle"](*bufs)
-            ok, ov = fns["reduce"](pk, pv)
-            return ok, ov, dropped
+            with span("mapreduce.job", args):
+                bufs = fns["map"](tokens)
+                if "combine" in fns:
+                    bufs = fns["combine"](*bufs)
+                pk, pv, dropped = fns["shuffle"](*bufs)
+                ok, ov = fns["reduce"](pk, pv)
+                return ok, ov, dropped
 
         return job
 
@@ -562,7 +592,7 @@ class ExecutionPlan:
         on the plan's device.  It queues its work without synchronising,
         but for the one value the all-to-all shuffle reads on the host
         (``AllToAllShuffle.live_width``)."""
-        return self._compose(self.phase_fns(workers))
+        return self._compose(self.phase_fns(workers), self._span_args(workers))
 
     def pipelined(self, workers: int | None = None,
                   depth: int | None = None):
@@ -577,7 +607,8 @@ class ExecutionPlan:
             raise ValueError(f"overlap depth must be >= 1, got {D}")
         return self._cached(
             self._pipelined, (W, D, self.combiner),
-            lambda: self._compose(self.pipelined_phase_fns(W, D)),
+            lambda: self._compose(self.pipelined_phase_fns(W, D),
+                                  self._span_args(W)),
         )
 
     def traced(self, recorder, workers: int | None = None,
@@ -599,13 +630,15 @@ class ExecutionPlan:
         m = self.meta(workers)
         pair_bytes = phases.PAIR_BYTES
         app, cfg, dev = self.app, self.cfg, self.device
+        args = self._span_args(workers)
 
         fenced = functools.partial(_fenced, dev)
 
         def job(tokens):
             trace = recorder.start_job(app.name, cfg, m["input_len"])
             try:
-                return run(tokens, trace)
+                with span("mapreduce.job", args):
+                    return run(tokens, trace)
             except Exception:
                 # A failed run leaves no partial trace behind.
                 if trace in recorder.traces:
@@ -735,6 +768,7 @@ class ExecutionPlan:
         waves_m, waves_r = cfg.map_waves, cfg.reduce_waves
         n_local = waves_m * P
         combiner, combine_cap = self.combiner, self.combine_cap
+        args = self._span_args(W)
 
         def w_map(tokens):
             tokens = torch.as_tensor(tokens, device=dev)
@@ -742,28 +776,32 @@ class ExecutionPlan:
                 raise ValueError(
                     f"expected ({input_len},), got {tuple(tokens.shape)}"
                 )
-            padded = torch.zeros(waves_m * W * S, dtype=torch.int32, device=dev)
-            padded[:input_len] = tokens
-            valid = torch.arange(waves_m * W * S, device=dev) < input_len
-            # This rank's tasks: rank, rank + W, ... as (waves, 1, S).
-            splits = padded.reshape(waves_m, W, S)[:, rank:rank + 1]
-            vsplit = valid.reshape(waves_m, W, S)[:, rank:rank + 1]
-            return tuple(a.reshape(n_local) for a in
-                         phases.map_phase(app, cfg, splits, vsplit))
+            with span("mapreduce.map"):
+                padded = torch.zeros(waves_m * W * S, dtype=torch.int32, device=dev)
+                padded[:input_len] = tokens
+                valid = torch.arange(waves_m * W * S, device=dev) < input_len
+                # This rank's tasks: rank, rank + W, ... as (waves, 1, S).
+                splits = padded.reshape(waves_m, W, S)[:, rank:rank + 1]
+                vsplit = valid.reshape(waves_m, W, S)[:, rank:rank + 1]
+                return tuple(a.reshape(n_local) for a in
+                             phases.map_phase(app, cfg, splits, vsplit))
 
         def w_combine(k, v, pv):
             # Rank-local combine before any byte crosses the group: the
             # stream (and the exchange built on it) shrinks to waves_m*Pc.
-            return tuple(a.reshape(-1) for a in phases.combine_rows(
-                reduce_backend, k.reshape(waves_m, P), v.reshape(waves_m, P),
-                pv.reshape(waves_m, P), reduce_op, combine_cap,
-            ))
+            with span("mapreduce.combine"):
+                return tuple(a.reshape(-1) for a in phases.combine_rows(
+                    reduce_backend, k.reshape(waves_m, P), v.reshape(waves_m, P),
+                    pv.reshape(waves_m, P), reduce_op, combine_cap,
+                ))
 
         def w_shuffle(k, v, pv):
-            return shuffle.exchange(cfg, group, k, v, pv)
+            with span("mapreduce.shuffle"):
+                return shuffle.exchange(cfg, group, k, v, pv)
 
         def w_reduce(bk, bv):
-            return phases.reduce_local(app, cfg, bk, bv, reduce_backend)
+            with span("mapreduce.reduce"):
+                return phases.reduce_local(app, cfg, bk, bv, reduce_backend)
 
         def gather(t):
             parts = [torch.empty_like(t) for _ in range(W)]
@@ -778,11 +816,12 @@ class ExecutionPlan:
         def finish(ok, ov, dropped):
             # (W, waves_r, cap) -> (R, cap) indexed by reducer id: reducer
             # r lives on worker r % W at local slot r // W.
-            out = gather(torch.stack([ok, ov]))
-            cap = ok.shape[-1]
-            ok, ov = out.permute(1, 2, 0, 3).reshape(2, waves_r * W, cap)[:, :R]
-            per_worker = gather(dropped)
-            total = per_worker.sum().to(torch.int32)
+            with span("mapreduce.gather"):
+                out = gather(torch.stack([ok, ov]))
+                cap = ok.shape[-1]
+                ok, ov = out.permute(1, 2, 0, 3).reshape(2, waves_r * W, cap)[:, :R]
+                per_worker = gather(dropped)
+                total = per_worker.sum().to(torch.int32)
             if not counters:
                 return ok, ov, total
             pw = per_worker.cpu().numpy()
@@ -794,11 +833,12 @@ class ExecutionPlan:
 
         if recorder is None:
             def job(tokens):
-                k, v, pv = w_map(tokens)
-                if combiner:
-                    k, v, pv = w_combine(k, v, pv)
-                bk, bv, dropped = w_shuffle(k, v, pv)
-                return finish(*w_reduce(bk, bv), dropped)
+                with span("mapreduce.job", args):
+                    k, v, pv = w_map(tokens)
+                    if combiner:
+                        k, v, pv = w_combine(k, v, pv)
+                    bk, bv, dropped = w_shuffle(k, v, pv)
+                    return finish(*w_reduce(bk, bv), dropped)
 
             return job
 
@@ -809,7 +849,8 @@ class ExecutionPlan:
         def traced_job(tokens):
             trace = recorder.start_job(app.name, cfg, input_len)
             try:
-                return run(tokens, trace)
+                with span("mapreduce.job", args):
+                    return run(tokens, trace)
             except Exception:
                 if trace in recorder.traces:
                     recorder.traces.remove(trace)

@@ -11,8 +11,13 @@
     estimator.py — static per-phase flops and bytes from one shape-only
                 (``device="meta"``) run of each phase function, in place of
                 the reference's XLA cost analysis
+
+The engine's ``record_function`` ranges (``SPANS``, ``span``) live in
+``repro_torch.mapreduce.spans``, which the engine imports, and are
+re-exported here.
 """
 
+from repro_torch.mapreduce.spans import SPANS, span
 from repro_torch.telemetry.trace import (
     PAIR_BYTES,
     TRACE_SCHEMA_VERSION,
@@ -39,6 +44,7 @@ from repro_torch.telemetry.models import (
 
 __all__ = [
     "PAIR_BYTES",
+    "SPANS",
     "TRACE_SCHEMA_VERSION",
     "JobTrace",
     "PhaseRecorder",
@@ -52,6 +58,7 @@ __all__ = [
     "estimates_available",
     "fit_phase_models",
     "phase_resource_key",
+    "span",
     "split_resource_key",
     "stage_cost_estimates",
     "targets_from_traces",

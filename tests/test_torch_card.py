@@ -625,3 +625,47 @@ def test_sharded_prefill_on_nccl_world1_equals_unsharded(tmp_path):
         dist.destroy_process_group()
     assert torch.equal(got, want)
     assert torch.equal(got2, want2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", [False, True])
+def test_every_device_op_of_a_fused_job_lies_in_a_phase_span(combiner):
+    """Under ``torch.profiler`` every device operation of a fused job,
+    the ctypes-launched ``segment_reduce`` / ``local_reduce`` included
+    (``_build.launch_range``), is launched inside one of the job's phase
+    spans, and the kernels sit under their ``repro_torch::<name>`` ranges."""
+    _needs_card()
+    from torch.autograd import DeviceType
+
+    corpus = torch.from_numpy(wordcount_corpus(1 << 20, vocab_size=4096, seed=3)).cuda()
+    cfg = JobConfig(7, 3, 2, combiner=combiner, reduce_backend="cuda")
+    job = build_job(wordcount(4096), cfg, len(corpus), device="cuda")
+    job(corpus)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        job(corpus)
+        torch.cuda.synchronize()
+    events = prof.events()
+    device_us = sum(e.time_range.elapsed_us() for e in events
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    phases = {"mapreduce.map", "mapreduce.combine", "mapreduce.shuffle", "mapreduce.reduce"}
+    # A launch the profiler interrupted to fetch a trace buffer is listed
+    # twice, under an "Activity Buffer Request" of the same id.
+    launched, seen = [], set()
+    for e in events:
+        if (e.device_type == DeviceType.CPU and e.kernels and e.id not in seen
+                and e.name != "Activity Buffer Request"):
+            seen.add(e.id)
+            p = e
+            while p is not None and p.name not in phases:
+                p = p.cpu_parent
+            launched.append((p and p.name, e))
+    assert all(phase is not None for phase, _ in launched), \
+        [e.name for phase, e in launched if phase is None]
+    assert sum(k.duration for _, e in launched for k in e.kernels) == \
+        pytest.approx(device_us, rel=1e-6)
+    names = {e.name: e for _, e in launched if e.name.startswith("repro_torch::")}
+    assert set(names) == {"repro_torch::segment_reduce"} | (
+        {"repro_torch::local_reduce"} if combiner else set())
+    assert all(any("reduce" in k.name for k in e.kernels) for e in names.values())
