@@ -13,7 +13,10 @@ Phases, one or more printed lines each, in run order:
 2. kernels: hold each MapReduce kernel against its plain PyTorch version on
    the card, bit for bit, at the main path's shapes and on edge rows
    (all-PAD, one key, a run across many tiles, sums above 2**24), with its
-   time, the plain version's time and its memory bound;
+   time, the plain version's time and its memory bound; the lexsort
+   shuffle's ``shuffle_merge`` on one row, rows with no valid pair, a hot
+   key cut at capacity, combined column slices and 40 rows into 40
+   partitions, then timed at the main path's (16, 2^24) at R = 7;
 3. attention: the two attention kernels against their plain versions on
    the card at the qwen3-0.6b serving shapes, gemma-7b's head_dim 256
    shapes (decode over a ragged kv_len split into 64-key tiles, the
@@ -29,12 +32,13 @@ Phases, one or more printed lines each, in run order:
 4. engine: both applications at 2**26 tokens through ``build_job`` with the
    ``"cuda"`` and ``"torch"`` reduce backends at a few (M, R, W): outputs
    bit-identical, results equal to a numpy count of the corpus, and
-   WordCount's combiner run equal to the run without it;
+   WordCount's combiner run equal to the run without it; one
+   ``shuffle_merge`` a job;
 5. loop: the paper's profile -> fit -> predict loop per application, 20
    training and 8 held-out (M, R) settings, reduce backend ``"cuda"``;
    then the launch counts of phases 4-5 (the MapReduce main path), which
-   must be exactly one ``segment_reduce`` per reduce wave and one
-   ``local_reduce`` per combiner job;
+   must be exactly one ``segment_reduce`` per reduce wave, one
+   ``local_reduce`` per combiner job and one ``shuffle_merge`` per job;
 6. breakdown: where one full-size job's time goes, phase by phase from the
    traced mode's JobTrace and (under ``torch.profiler``) kernel by kernel,
    with the device's busy share;
@@ -93,10 +97,13 @@ Phases, one or more printed lines each, in run order:
    configuration's phases, and the ``segment_reduce`` / ``local_reduce``
    launches (the rank process's included) equal what the oracles'
    ``cuda`` runs must make (one a reduce wave or step, one a combiner
-   job, warmups included); per policy the makespan, mean
+   job, warmups included), the ``shuffle_merge`` launches one a lexsort
+   run of any backend on the card; per policy the makespan, mean
    turnaround, SLO attainment, the share of ``cuda`` plans and the online
    prediction error beside the paper's 5 %, as information; phases 7-12
-   each count their launches from zero;
+   each count their launches from zero, ``shuffle_merge`` included, and
+   each must have made one ``shuffle_merge`` per lexsort job it ran on
+   the card (the shuffle or the shuffle step of a resumable job);
 13. serve: the LM serving path (the second main path) at the full width of
    qwen3-0.6b: latency profile, fit and SLO batch pick, 32 requests, the
    prediction at unprofiled batches 3 and 6 against a measurement, a batch
@@ -212,8 +219,8 @@ Phases, one or more printed lines each, in run order:
    (``mapreduce_wordcount`` plain and with ``--combiner --phase-times``,
    ``phase_breakdown``, ``cluster_sim --real``, ``elastic_preempt``,
    ``serve_lm``), each checking its own result, with its wall and its
-   launches; ``segment_reduce``, ``local_reduce``, ``decode_attention``
-   and ``flash_attention`` must each launch.
+   launches; ``segment_reduce``, ``local_reduce``, ``shuffle_merge``,
+   ``decode_attention`` and ``flash_attention`` must each launch.
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -436,7 +443,75 @@ def phase_kernels() -> dict:
             del k, v
     for name in kernels:
         report[name]["max_abs_err"] = errs[name]
+    report["shuffle_merge"] = check_shuffle_merge()
     return report
+
+
+def spill_sorted_rows(M: int, C: int, *, valid: float, seed: int, hot: int | None = None):
+    """(M, C) task rows as the map's stable spill sort leaves them: keys
+    drawn about Zipf a = 1 over 1.4e6 words (or all ``hot``), ``valid`` of
+    the slots valid, each row sorted with its invalid pairs last."""
+    from repro_torch.mapreduce.phases import PAD_KEY
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    keys = (1.4e6 ** torch.rand((M, C), generator=g, device="cuda")).to(torch.int32)
+    if hot is not None:
+        keys.fill_(hot)
+    live = torch.rand((M, C), generator=g, device="cuda") < valid
+    vals = torch.randint(-(2**31), 2**31 - 1, (M, C), generator=g, device="cuda",
+                         dtype=torch.int32)
+    _, order = torch.sort(torch.where(live, keys, PAD_KEY), dim=1, stable=True)
+    return keys.gather(1, order), vals.gather(1, order), live.gather(1, order)
+
+
+def check_shuffle_merge() -> dict:
+    """The shuffle merge against its plain version (the lexsort body) bit
+    for bit on edge rows (one row, no valid pair, a hot key cut at
+    capacity, combined column slices, 40 rows into 40 partitions), then at
+    the main path's shape, (16, 2^24) at R = 7, with its time, the plain
+    version's and its bound (9 B a pair read, both partitions written once,
+    at 3.35 TB/s); one launch a call."""
+    from repro_torch.kernels.local_reduce import local_reduce
+    from repro_torch.kernels.shuffle_merge import shuffle_merge
+    from repro_torch.mapreduce.backends import lexsort_partition
+    from repro_torch.mapreduce.phases import PAD_KEY, partition_capacity
+
+    def check(case, k, v, p, R, cap):
+        before = shuffle_merge.launches
+        got, want = shuffle_merge(k, v, p, R, cap), lexsort_partition(k, v, p, R, cap)
+        torch.cuda.synchronize()
+        if shuffle_merge.launches != before + 1 or not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"shuffle_merge differs from its plain version on {case}")
+        return int(got[2])
+
+    n = 1 << 20
+    for case, (M, R, valid, hot, factor) in {
+            "one_row": (1, 7, 0.8, None, 4.0), "no_valid_pair": (4, 5, 0.0, None, 4.0),
+            "hot_key_cut": (16, 7, 1.0, 3, 4.0), "forty_rows": (40, 40, 0.7, None, 1.0)}.items():
+        k, v, p = spill_sorted_rows(M, n // M, valid=valid, seed=M + R, hot=hot)
+        dropped = check(case, k, v, p, R, partition_capacity(k.numel(), R, factor))
+        log("kernels", f"shuffle_merge {case} {tuple(k.shape)} R={R}: bit-exact, "
+            f"dropped {dropped}")
+    k, v, p = spill_sorted_rows(16, n // 16, valid=1.0, seed=5)
+    ck, cv = local_reduce(torch.where(p, k, PAD_KEY), torch.where(p, v, 0))
+    ck, cv = ck[:, :4096], cv[:, :4096]
+    check("combined_slices", ck, cv, ck != PAD_KEY, 7, partition_capacity(ck.numel(), 7, 4.0))
+    log("kernels", f"shuffle_merge combined column slices {tuple(ck.shape)} (row stride "
+        f"{ck.stride(0)}): bit-exact")
+
+    M, C, R = 16, 1 << 24, 7
+    k, v, p = spill_sorted_rows(M, C, valid=1.0, seed=0)
+    cap = partition_capacity(M * C, R, 4.0)
+    check("main path", k, v, p, R, cap)
+    ms = device_ms(lambda: shuffle_merge(k, v, p, R, cap))
+    plain_ms = device_ms(lambda: lexsort_partition(k, v, p, R, cap), iters=3, warmup=1)
+    bound_ms = (M * C * 9 + R * cap * 8) / HBM_BYTES_PER_S * 1e3
+    log("kernels", f"shuffle_merge {(M, C)} R={R} cap={cap}: bit-exact; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (9 B a pair read, "
+        f"{R} x cap x 8 B written, at 3.35 TB/s), library call: none")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "shape": [M, C, R],
+            "max_abs_err": 0}
 
 
 def exim_expected(corpus: np.ndarray, M: int) -> tuple[dict, int]:
@@ -485,15 +560,18 @@ def check_results(tag: str, got: dict, want: dict, dropped: int, name: str) -> s
     return "+ dropped == numpy count"
 
 
-def phase_engine(apps: dict, expect: dict) -> int:
+def phase_engine(apps: dict, expect: dict) -> dict:
     """Full-size jobs, "cuda" against "torch"; returns the segment_reduce
-    launches the "cuda" jobs must have made."""
+    launches the "cuda" jobs must have made and the lexsort jobs run, each
+    one shuffle_merge launch."""
     from repro_torch.kernels.local_reduce import local_reduce
     from repro_torch.kernels.segment_reduce import segment_reduce
+    from repro_torch.kernels.shuffle_merge import shuffle_merge
     from repro_torch.mapreduce import JobConfig, build_job, collect_results
 
     waves = 0
     combines = 0
+    shuffles = shuffle_merge.launches
     for name, (app, corpus) in apps.items():
         for M, R, W in ENGINE_CONFIGS:
             outs, times = {}, {}
@@ -539,21 +617,28 @@ def phase_engine(apps: dict, expect: dict) -> int:
             f"bit-identical to combiner off ({a[0].numel()} pairs), partitions "
             f"{tuple(plain[0].shape)} -> {tuple(combined[0].shape)}")
         del plain, combined
-    if segment_reduce.launches != waves or local_reduce.launches != combines:
+    # One shuffle_merge a lexsort job: both backends twice at each setting,
+    # and WordCount's two combiner-comparison jobs.
+    jobs = 4 * len(ENGINE_CONFIGS) * len(apps) + 2
+    if segment_reduce.launches != waves or local_reduce.launches != combines or \
+            shuffle_merge.launches - shuffles != jobs:
         raise AssertionError(
             f"engine launches segment_reduce={segment_reduce.launches} (want {waves}), "
-            f"local_reduce={local_reduce.launches} (want {combines})")
+            f"local_reduce={local_reduce.launches} (want {combines}), "
+            f"shuffle_merge={shuffle_merge.launches - shuffles} (want {jobs})")
     log("engine", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return waves
+    return {"segment_reduce": waves, "shuffle_merge": jobs}
 
 
-def phase_loop(apps: dict) -> int:
-    """The paper's loop per app; returns the segment_reduce launches made."""
+def phase_loop(apps: dict) -> dict:
+    """The paper's loop per app; returns the segment_reduce launches its
+    jobs must have made (R a job at W = 1) and its lexsort jobs, the
+    profiled runs and one warm-up run a distinct (M, R)."""
     from repro_torch.core import fit, prediction_error_stats, profile_experiments
     from repro_torch.runner import JobRunner, heldout_configs, training_configs
 
     train, held = training_configs(), heldout_configs()
-    launches = 0
+    want = {"segment_reduce": 0, "shuffle_merge": 0}
     for name, (app, corpus) in apps.items():
         runner = JobRunner(app, corpus, device="cuda", reduce_backend="cuda")
         t0 = time.perf_counter()
@@ -578,8 +663,9 @@ def phase_loop(apps: dict) -> int:
                  for _ in range(REPEATS)]
         first_runs = {(int(round(m)), int(round(r)))
                       for m, r in np.concatenate([train, held])}
-        launches += sum(calls) + sum(r for _, r in first_runs)
-    return launches
+        want["segment_reduce"] += sum(calls) + sum(r for _, r in first_runs)
+        want["shuffle_merge"] += len(calls) + len(first_runs)
+    return want
 
 
 def phase_breakdown(apps: dict) -> None:
@@ -648,11 +734,11 @@ def phase_traced(apps: dict, expect: dict, pairs: dict, traces: dict) -> dict:
     conservation laws checked.  Each job's warm JobTrace goes into
     ``traces`` under (name, M, R, W, combiner).  Returns the launches its
     jobs must have made: one segment_reduce a reduce wave, one local_reduce
-    a combiner job."""
+    a combiner job, one shuffle_merge a job."""
     from repro_torch.mapreduce import build_job
     from repro_torch.telemetry import PhaseRecorder
 
-    seg = loc = 0
+    seg = loc = shuf = 0
     for name, app, corpus, cfg in mapreduce_jobs(apps):
         M, R, W = cfg.num_mappers, cfg.num_reducers, cfg.num_workers
         fused = build_job(app, cfg, len(corpus), device="cuda")(corpus)
@@ -683,6 +769,7 @@ def phase_traced(apps: dict, expect: dict, pairs: dict, traces: dict) -> dict:
         trace = traces[(name, M, R, W, cfg.combiner)] = recorder.last
         seg += cfg.reduce_waves
         loc += int(cfg.combiner)
+        shuf += 3  # the fused job and both traced ones
         log("traced", f"{name} M={M} R={R} W={W}{' combiner' if cfg.combiner else ''}: "
             f"== fused bit for bit, conserves, pairs_emitted {int(emitted)} == numpy, "
             f"segments_out {int(segments)} ({distinct} distinct keys, {dropped} dropped); "
@@ -692,7 +779,7 @@ def phase_traced(apps: dict, expect: dict, pairs: dict, traces: dict) -> dict:
             f"{p.phase} " + " ".join(f"{k}={v:g}" for k, v in sorted(p.counters.items())
                                      if k not in ("cpu_workers",))
             for p in trace.phases))
-    return {"segment_reduce": seg, "local_reduce": loc}
+    return {"segment_reduce": seg, "local_reduce": loc, "shuffle_merge": shuf}
 
 
 def phase_pipelined(apps: dict) -> dict:
@@ -701,19 +788,21 @@ def phase_pipelined(apps: dict) -> dict:
     wave group (ceil(R / min(W D, R)) a job) and one local_reduce a
     combiner job; the traced form at depth 2 records the pipeline phase
     and conserves.  Job walls beside fused's are information only.
-    Returns the launches the phase's jobs must have made."""
+    Returns the launches the phase's jobs must have made, one shuffle_merge
+    a job."""
     from repro_torch.kernels.local_reduce import local_reduce
     from repro_torch.kernels.segment_reduce import segment_reduce
     from repro_torch.mapreduce import ExecutionPlan
     from repro_torch.telemetry import PhaseRecorder
 
-    want = {"segment_reduce": 0, "local_reduce": 0}
+    want = {"segment_reduce": 0, "local_reduce": 0, "shuffle_merge": 0}
     for name, app, corpus, cfg in mapreduce_jobs(apps):
         M, R, W = cfg.num_mappers, cfg.num_reducers, cfg.num_workers
         plan = ExecutionPlan(app, cfg, len(corpus), device="cuda")
         fused, t_fused = timed_job(plan.fused(), corpus)
         want["segment_reduce"] += 2 * cfg.reduce_waves
         want["local_reduce"] += 2 * int(cfg.combiner)
+        want["shuffle_merge"] += 2
         walls = []
         for depth in (1, 2, 3):
             job = plan.pipelined(depth=depth)
@@ -725,6 +814,7 @@ def phase_pipelined(apps: dict) -> dict:
             made = (segment_reduce.launches - before[0], local_reduce.launches - before[1])
             want["segment_reduce"] += 3 * groups
             want["local_reduce"] += 3 * int(cfg.combiner)
+            want["shuffle_merge"] += 3
             if made != (2 * groups, 2 * int(cfg.combiner)):
                 raise AssertionError(f"pipelined {name} {(M, R, W)} depth {depth}: launches "
                                      f"{made} for two jobs, want {groups} and "
@@ -737,6 +827,7 @@ def phase_pipelined(apps: dict) -> dict:
         got = plan.traced(recorder, depth=2)(corpus)
         want["segment_reduce"] += math.ceil(R / min(2 * W, R))
         want["local_reduce"] += int(cfg.combiner)
+        want["shuffle_merge"] += 1
         trace = recorder.last
         if not all(torch.equal(a, b) for a, b in zip(got, fused)) or \
                 trace.phase_names()[-1] != "pipeline" or trace.check_conservation():
@@ -777,15 +868,16 @@ def phase_a2a(apps: dict, expect: dict) -> dict:
     rank at (20, 5, 1), bit-equal to the emulated mode at W = 1, with its
     per-worker overflow stats.  Walls beside the lexsort fused job's, and
     the shuffle's from the traced phases, are information only.  Returns
-    the launches its jobs must have made."""
+    the launches its jobs must have made, one shuffle_merge a lexsort job."""
     from repro_torch.mapreduce import ExecutionPlan, JobConfig, collect_results
     from repro_torch.telemetry import PhaseRecorder
 
-    want = {"segment_reduce": 0, "local_reduce": 0}
+    want = {"segment_reduce": 0, "local_reduce": 0, "shuffle_merge": 0}
 
     def count(cfg, jobs, groups=None):
         want["segment_reduce"] += jobs * (cfg.reduce_waves if groups is None else groups)
         want["local_reduce"] += jobs * int(cfg.combiner)
+        want["shuffle_merge"] += jobs * int(cfg.shuffle_backend == "lexsort")
 
     with nccl_world1() as group:
         for name, (app, corpus) in apps.items():
@@ -865,14 +957,15 @@ def phase_elastic(apps: dict) -> dict:
     restored into a fresh ResumableJob and resumed: bit-equal to fused.
     Snapshot bytes, save and restore walls are printed.  Returns the
     launches its jobs must have made: one segment_reduce a reduce step,
-    one local_reduce a combine step."""
+    one local_reduce a combine step, one shuffle_merge a lexsort shuffle
+    step or fused lexsort job."""
     import tempfile
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.elastic import ResumableJob, load_snapshot, run_resumable, save_snapshot
     from repro_torch.mapreduce import ExecutionPlan, JobConfig, collect_results
 
-    want = {"segment_reduce": 0, "local_reduce": 0}
+    want = {"segment_reduce": 0, "local_reduce": 0, "shuffle_merge": 0}
     M, R = ENGINE_CONFIGS[0][:2]
 
     def run(job, corpus, state=None, preempt_after=None):
@@ -883,8 +976,10 @@ def phase_elastic(apps: dict) -> dict:
         combines = int(a.combined and not b.combined)
         steps = a.waves_executed - b.waves_executed
         map_steps = math.ceil((a.map_tasks_done - b.map_tasks_done) / b.workers)
-        want["segment_reduce"] += steps - map_steps - combines - int(a.shuffled > b.shuffled)
+        shuffles = int(a.shuffled > b.shuffled)
+        want["segment_reduce"] += steps - map_steps - combines - shuffles
         want["local_reduce"] += combines
+        want["shuffle_merge"] += shuffles * int(job.cfg.shuffle_backend == "lexsort")
         return out
 
     jobs = [("wordcount", False), ("eximparse", False), ("wordcount", True)]
@@ -897,6 +992,7 @@ def phase_elastic(apps: dict) -> dict:
             fused = plan.fused()(corpus)
             want["segment_reduce"] += cfg.reduce_waves
             want["local_reduce"] += int(combiner)
+            want["shuffle_merge"] += int(sb == "lexsort")
             job = plan.resumable()
             t0 = time.perf_counter()
             state = run(job, corpus, preempt_after=1)                # map wave 1 at W = 1
@@ -977,7 +1073,7 @@ def phase_estimator(apps: dict, traces: dict) -> dict:
                 f"{e['bytes'] / trace.phase(ph).wall_s / 1e9:.0f} GB/s"
                 for ph, e in est.items())
             + f" (HBM {HBM_BYTES_PER_S / 1e9:.0f} GB/s)")
-    return {"segment_reduce": 0, "local_reduce": 0}
+    return {"segment_reduce": 0, "local_reduce": 0, "shuffle_merge": 0}
 
 
 #: the [cluster] phase: a trace of CLUSTER_JOBS jobs on CLUSTER_WORKERS
@@ -1003,8 +1099,9 @@ ELASTIC_PRIOR_S = 1e-5
 
 def tally_oracle(oracle, want: dict, walls: dict):
     """Wrap the engine oracle's entry points to tally the kernel launches
-    its ``cuda`` runs must make: one segment_reduce a reduce wave (or
-    reduce step) and one local_reduce a combiner job, for the warmup
+    its runs must make: for ``cuda`` runs one segment_reduce a reduce wave
+    (or reduce step) and one local_reduce a combiner job, and for every
+    run, each a lexsort job on the card, one shuffle_merge; the warmup
     runs too (a new plan, a new grant of a resumable job, a new snapshot
     bucket).  Host walls of bootstrap-profiling calls go to ``walls``."""
     from repro_torch.cluster.oracle import PROFILE_JOB_ID
@@ -1013,6 +1110,7 @@ def tally_oracle(oracle, want: dict, walls: dict):
                                    oracle.regrant_overhead)
 
     def count(backend, R, W, combiner, runs):
+        want["shuffle_merge"] += runs
         if backend == "cuda":
             want["segment_reduce"] += runs * math.ceil(R / W)
             want["local_reduce"] += runs * int(combiner)
@@ -1036,8 +1134,9 @@ def tally_oracle(oracle, want: dict, walls: dict):
         n = len(oracle._overheads)
         out = overhead_(app, backend, size, M, R, **kw)
         walls["snapshots"].append(out)
-        if len(oracle._overheads) > n and kw.get("shuffled") and backend == "cuda":
-            want["local_reduce"] += int(kw.get("combiner", False))
+        if len(oracle._overheads) > n and kw.get("shuffled"):  # stepped to the shuffle
+            want["shuffle_merge"] += 1
+            want["local_reduce"] += int(kw.get("combiner", False) and backend == "cuda")
         return out
 
     oracle.time, oracle.remaining_segments, oracle.regrant_overhead = timed, segments, overhead
@@ -1146,11 +1245,12 @@ def phase_cluster() -> dict:
     ELASTIC_JOBS jobs over ELASTIC_SIZES (three best-effort jobs first,
     deadline jobs a moment later), which must regrant at least once on measured
     snapshot walls; then the CLI once, in-process, with its own oracle
-    (fifo-static on torch, so it launches no kernel).  Every job completes
-    or is rejected, fifo-static completes all, every trace conserves.
-    Then the engine-sharded arm (``sharded_arm``).  Returns the launches
-    the oracles' cuda runs must have made, and those the rank process
-    made."""
+    (fifo-static on torch, so it launches no reduce kernel; its oracle is
+    tallied as the phase's).  Every job completes or is rejected,
+    fifo-static completes all, every trace conserves.  Then the
+    engine-sharded arm (``sharded_arm``), whose all-to-all jobs launch no
+    shuffle_merge.  Returns the launches the oracles' runs must have made,
+    and those the rank process made."""
     import dataclasses as dc
     import tempfile
 
@@ -1161,7 +1261,7 @@ def phase_cluster() -> dict:
     from repro_torch.launch import cluster as cli
 
     torch.cuda.reset_peak_memory_stats()
-    want = {"segment_reduce": 0, "local_reduce": 0}
+    want = {"segment_reduce": 0, "local_reduce": 0, "shuffle_merge": 0}
     walls = {"bootstrap": 0.0, "snapshots": []}
     oracle = EngineOracle(traced=True, size_quantum=1 << 20, device="cuda")
     tally_oracle(oracle, want, walls)
@@ -1216,14 +1316,23 @@ def phase_cluster() -> dict:
         f"charged {m['regrant_overhead_s'] * 1e3:.1f} ms; measured snapshot save / restore "
         + ", ".join(f"{s * 1e3:.1f} / {r * 1e3:.1f} ms" for s, r in snaps))
 
-    # The CLI, once, with its own oracle.
+    # The CLI, once, with its own oracle, tallied as the phase's.
+    class TalliedOracle(EngineOracle):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            tally_oracle(self, want, walls)
+
     with tempfile.TemporaryDirectory() as tmp:
         out_json, trace_out = Path(tmp) / "m.json", Path(tmp) / "t.json"
         t0 = time.perf_counter()
-        cli.main(["--oracle", "engine-traced", "--jobs", "8", "--workers", "16",
-                  "--policies", "fifo-static", "--size-min", "4194304",
-                  "--size-max", "16777216", "--json", str(out_json),
-                  "--trace-out", str(trace_out)])
+        cli.EngineOracle = TalliedOracle
+        try:
+            cli.main(["--oracle", "engine-traced", "--jobs", "8", "--workers", "16",
+                      "--policies", "fifo-static", "--size-min", "4194304",
+                      "--size-max", "16777216", "--json", str(out_json),
+                      "--trace-out", str(trace_out)])
+        finally:
+            cli.EngineOracle = EngineOracle
         wall = time.perf_counter() - t0
         m = json.loads(out_json.read_text())["fifo-static"]
         spans = [e for e in json.loads(trace_out.read_text())["traceEvents"]
@@ -3777,7 +3886,7 @@ def phase_examples() -> dict:
     the word count's total, the snapshot's bit-identical resume, serving's
     decode against its teacher-forced forward at 2e-2, the model
     database's round trip).  Each one's kernel launches and wall are
-    printed with its chosen lines; the four kernels of the MapReduce and
+    printed with its chosen lines; the five kernels of the MapReduce and
     serving paths must each launch.  Returns the launches by kernel."""
     import contextlib
     import importlib
@@ -3787,9 +3896,11 @@ def phase_examples() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.local_reduce import local_reduce
     from repro_torch.kernels.segment_reduce import segment_reduce
+    from repro_torch.kernels.shuffle_merge import shuffle_merge
 
     kernels = {"segment_reduce": segment_reduce, "local_reduce": local_reduce,
-               "decode_attention": decode_attention, "flash_attention": flash_attention}
+               "shuffle_merge": shuffle_merge, "decode_attention": decode_attention,
+               "flash_attention": flash_attention}
     for fn in kernels.values():
         fn.launches = 0
     for name, argv, shown in EXAMPLE_RUNS:
@@ -3826,6 +3937,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside the repository)
     from repro_torch.kernels.local_reduce import local_reduce
     from repro_torch.kernels.segment_reduce import segment_reduce
+    from repro_torch.kernels.shuffle_merge import shuffle_merge
     from repro_torch.runner import make_app
 
     t_start = time.perf_counter()
@@ -3851,14 +3963,17 @@ def main() -> int:
     # The main path: phases 3 and 4, counted from zero.
     segment_reduce.launches = 0
     local_reduce.launches = 0
-    want = phase_engine(apps, expect)
-    want += phase_loop(apps)
+    shuffle_merge.launches = 0
+    engine, loop = phase_engine(apps, expect), phase_loop(apps)
+    want = {name: engine[name] + loop[name] for name in engine}
     launches = {"segment_reduce": segment_reduce.launches,
-                "local_reduce": local_reduce.launches}
-    if launches["segment_reduce"] != want or launches["local_reduce"] < 1:
-        raise AssertionError(f"main path launches {launches}, want segment_reduce={want}")
+                "local_reduce": local_reduce.launches,
+                "shuffle_merge": shuffle_merge.launches}
+    if {name: launches[name] for name in want} != want or launches["local_reduce"] < 1:
+        raise AssertionError(f"main path launches {launches}, want {want}")
     log("launches", f"main path: segment_reduce {launches['segment_reduce']} "
-        f"(one per reduce wave), local_reduce {launches['local_reduce']} (one per combiner job)")
+        f"(one per reduce wave), local_reduce {launches['local_reduce']} (one per combiner "
+        f"job), shuffle_merge {launches['shuffle_merge']} (one per lexsort job)")
     phase_breakdown(apps)
 
     # The traced and pipelined modes, the all-to-all shuffle and the
@@ -3872,18 +3987,21 @@ def main() -> int:
                         ("cluster", phase_cluster)):
         segment_reduce.launches = 0
         local_reduce.launches = 0
+        shuffle_merge.launches = 0
         t_path = time.perf_counter()
         want = drive()
         # A path that runs jobs in rank processes returns their launches too.
         want, ranks = want if isinstance(want, tuple) else (want, {})
         made = {name: fn.launches + ranks.get(name, 0)
                 for name, fn in (("segment_reduce", segment_reduce),
-                                 ("local_reduce", local_reduce))}
+                                 ("local_reduce", local_reduce),
+                                 ("shuffle_merge", shuffle_merge))}
         if made != want:
             raise AssertionError(f"{path} path launches {made}, want {want}")
         log("launches", f"{path} path: segment_reduce {made['segment_reduce']}, local_reduce "
             f"{made['local_reduce']} (as its jobs' reduce waves, groups, slots or steps and "
-            f"combiners), {time.perf_counter() - t_path:.1f} s")
+            f"combiners), shuffle_merge {made['shuffle_merge']} (its lexsort jobs), "
+            f"{time.perf_counter() - t_path:.1f} s")
         for name, n in made.items():
             launches[name] += n
     del apps
@@ -3954,7 +4072,9 @@ def main() -> int:
                                     "src/repro/kernels/decode_attention/kernel.py:31"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:31"),
-               "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv6/kernel.py:30")}
+               "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv6/kernel.py:30"),
+               "shuffle_merge": ("src/repro_torch/csrc/shuffle_merge.cu",
+                                 "none: jnp.lexsort in src/repro/mapreduce/backends.py")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],

@@ -10,7 +10,13 @@ PyTorch version, which the wrapper takes for CPU tensors and the tests and
 * ``local_reduce``   replaces ``repro/kernels/local_reduce`` (Pallas);
 * ``flash_attention`` replaces ``repro/kernels/flash_attention`` (Pallas);
 * ``decode_attention`` replaces ``repro/kernels/decode_attention`` (Pallas);
-* ``rwkv6``           replaces ``repro/kernels/rwkv6`` (Pallas).
+* ``rwkv6``           replaces ``repro/kernels/rwkv6`` (Pallas);
+* ``shuffle_merge``   replaces no Pallas kernel: the lexsort shuffle's
+  global sort, gathers and scatter (the reference's ``jnp.lexsort``), as a
+  split of the map's sorted task rows and a merge of their runs.  It has
+  no ``ref.py`` and takes CUDA tensors only: its plain version is the
+  engine's own, ``mapreduce.backends.lexsort_partition``, which
+  ``LexsortShuffle.partition`` calls for CPU and meta tensors.
 """
 
 from repro_torch.kernels import (  # noqa: F401
@@ -19,7 +25,8 @@ from repro_torch.kernels import (  # noqa: F401
     local_reduce,
     rwkv6,
     segment_reduce,
+    shuffle_merge,
 )
 
 __all__ = ["decode_attention", "flash_attention", "local_reduce", "rwkv6",
-           "segment_reduce"]
+           "segment_reduce", "shuffle_merge"]

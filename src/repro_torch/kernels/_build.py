@@ -116,6 +116,15 @@ def load() -> ctypes.CDLL:
     lib.wkv6_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                 i32, i32, i32, i32, ptr]
     lib.wkv6_launch.restype = i32
+    i64 = ctypes.c_longlong
+    lib.shuffle_merge_scratch.argtypes = [i32, i32, i32]
+    lib.shuffle_merge_scratch.restype = i64
+    lib.shuffle_merge_max_reducers.argtypes = []
+    lib.shuffle_merge_max_reducers.restype = i32
+    for stage in (lib.shuffle_split_launch, lib.shuffle_merge_launch):
+        stage.argtypes = [ptr, i64, ptr, i64, ptr, i64, i32, i32, i32, i32, i32, ptr, ptr,
+                          ptr, ptr, ptr]
+        stage.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,8 +14,10 @@ execution backend is a categorical tuning axis with three arms:
 
 Shuffle backends:
 
-* ``lexsort``    — single-controller global sort by (reducer, key) +
-  capacity-bounded scatter;
+* ``lexsort``    — single controller: each task row split by reducer and
+  the rows' sorted runs merged into capacity-bounded partitions (the
+  ``shuffle_merge`` kernels; on the CPU a global sort by (reducer, key) +
+  capacity-bounded scatter);
 * ``all_to_all`` — per-worker partition by destination + an all-to-all
   exchange: ``torch.distributed.all_to_all_single`` in the plan's sharded
   mode, the block transpose it implements in the emulated modes.
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.shuffle_merge import shuffle_merge
 from repro_torch.mapreduce import phases
 from repro_torch.mapreduce.phases import (
     INT32_MIN,
@@ -172,30 +175,55 @@ def _stable_order(primary, keys):
 
 
 class LexsortShuffle(ShuffleBackend):
-    """Single-controller shuffle: global sort by (reducer, key) + scatter."""
+    """Single-controller shuffle: every pair to its reducer's partition in
+    (key, stream position) order.  On the card the ``shuffle_merge``
+    kernels split each task row by reducer and merge the rows' sorted
+    runs; on CPU and meta tensors :func:`lexsort_partition` sorts globally
+    by (reducer, key) and scatters."""
 
     name = "lexsort"
 
     def partition(self, cfg, keys, values, pvalid):
-        """keys/values/pvalid: (n,), or task rows read as one flat (n,)
-        stream.  Returns (part_keys, part_vals, dropped) with partitions
-        of shape (reduce_waves * W, cap)."""
-        R, W = cfg.num_reducers, cfg.num_workers
-        with span("mapreduce.shuffle.sort"):
-            # Combined task rows are column slices: flattening them copies.
-            keys, values, pvalid = (a.reshape(-1) for a in (keys, values, pvalid))
-            rid = hash_to_reducer(keys, R)
-            rid = torch.where(pvalid, rid, R)  # invalid pairs -> OOB dump row
-            order = _stable_order(rid, keys)  # reducer first, then key
-        with span("mapreduce.shuffle.gather"):
-            skeys, svals, srid = keys[order], values[order], rid[order]
-        cap = phases.partition_capacity(keys.shape[0], R, cfg.capacity_factor)
-        R_pad = cfg.reduce_waves * W
-        with span("mapreduce.shuffle.scatter"):
-            (part_keys, part_vals), dropped = bucket_scatter(
-                srid, R, R_pad, cap, (skeys, svals), (PAD_KEY, 0)
-            )
-        return part_keys, part_vals, dropped
+        """keys/values/pvalid: (N, C) task rows read as one flat (N C,)
+        stream, or on CPU and meta tensors (n,) too.  Returns (part_keys,
+        part_vals, dropped) with partitions of shape (reduce_waves * W,
+        cap).
+
+        Precondition on the card: each row's valid pairs are
+        non-decreasing in key.  ``plan._lexsort_shuffle_fn`` is the only
+        caller, and the map's stable spill sort (``phases.run_map_task``)
+        and the combine (front-packed ascending rows) guarantee it."""
+        R = cfg.num_reducers
+        cap = phases.partition_capacity(keys.numel(), R, cfg.capacity_factor)
+        n_rows = cfg.reduce_waves * cfg.num_workers
+        if keys.device.type != "cuda":
+            return lexsort_partition(keys, values, pvalid, R, cap, n_rows)
+        return shuffle_merge(keys, values, pvalid, R, cap, n_rows,
+                             stage_range=lambda stage: span(f"mapreduce.shuffle.{stage}"))
+
+
+def lexsort_partition(keys, values, pvalid, R: int, cap: int, n_rows: int | None = None):
+    """The lexsort shuffle in plain PyTorch, the ``shuffle_merge`` kernels'
+    contract: keys/values int32 and pvalid bool of one shape, read as one
+    flat stream.  Returns (part_keys, part_vals, dropped): (n_rows, cap)
+    int32 partitions (``n_rows`` defaults to R), partition r holding the
+    valid pairs whose reducer is r in (key, stream position) order, cut at
+    ``cap`` with a (PAD_KEY, 0) tail, and ``dropped`` the int32 count of
+    the cut pairs."""
+    n_rows = R if n_rows is None else n_rows
+    with span("mapreduce.shuffle.sort"):
+        # Combined task rows are column slices: flattening them copies.
+        keys, values, pvalid = (a.reshape(-1) for a in (keys, values, pvalid))
+        rid = hash_to_reducer(keys, R)
+        rid = torch.where(pvalid, rid, R)  # invalid pairs -> OOB dump row
+        order = _stable_order(rid, keys)  # reducer first, then key
+    with span("mapreduce.shuffle.gather"):
+        skeys, svals, srid = keys[order], values[order], rid[order]
+    with span("mapreduce.shuffle.scatter"):
+        (part_keys, part_vals), dropped = bucket_scatter(
+            srid, R, n_rows, cap, (skeys, svals), (PAD_KEY, 0)
+        )
+    return part_keys, part_vals, dropped
 
 
 class AllToAllShuffle(ShuffleBackend):

@@ -21,10 +21,16 @@ The names (:data:`SPANS`), and where each range lies:
 ``mapreduce.map.spill_sort``    a wave's stable spill sort and its gathers
 ``mapreduce.combine``           the map-side combine barrier
 ``mapreduce.shuffle``           the shuffle barrier
-``mapreduce.shuffle.sort``      lexsort: hash, pack, stable (reducer, key)
-                                sort
-``mapreduce.shuffle.gather``    lexsort: keys, values, reducer ids in order
-``mapreduce.shuffle.scatter``   lexsort: the capacity-bounded scatter
+``mapreduce.shuffle.sort``      lexsort, plain version: hash, pack, stable
+                                (reducer, key) sort
+``mapreduce.shuffle.gather``    lexsort, plain version: keys, values,
+                                reducer ids in order
+``mapreduce.shuffle.scatter``   lexsort, plain version: the
+                                capacity-bounded scatter
+``mapreduce.shuffle.split``     lexsort on the card: count, scan, plan and
+                                the split of each row by reducer
+``mapreduce.shuffle.merge``     lexsort on the card: the merge rounds into
+                                the partitions and their tails
 ``mapreduce.shuffle.pack``      all-to-all: partition by destination worker
 ``mapreduce.shuffle.exchange``  all-to-all: the live width and the exchange
                                 (``all_to_all_single``, or the block
@@ -54,6 +60,8 @@ SPANS = (
     "mapreduce.shuffle.sort",
     "mapreduce.shuffle.gather",
     "mapreduce.shuffle.scatter",
+    "mapreduce.shuffle.split",
+    "mapreduce.shuffle.merge",
     "mapreduce.shuffle.pack",
     "mapreduce.shuffle.exchange",
     "mapreduce.shuffle.unpack",

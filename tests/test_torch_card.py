@@ -20,13 +20,17 @@ from repro_torch.kernels.segment_reduce import (
     segment_reduce,
     segment_reduce_ref,
 )
+from repro_torch.kernels.shuffle_merge import shuffle_merge
 from repro_torch.mapreduce import (
     ExecutionPlan,
     JobConfig,
     build_job,
+    get_shuffle_backend,
     wordcount,
     wordcount_corpus,
 )
+from repro_torch.mapreduce.backends import lexsort_partition
+from repro_torch.mapreduce.phases import combine_rows, partition_capacity
 from repro_torch.telemetry import PhaseRecorder
 
 KERNELS = {
@@ -76,6 +80,112 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         local_reduce(k.t(), k.t())
 
 
+def _spill_sorted_rows(rng, M, C, hot=None):
+    """(M, C) task rows as the map's stable spill sort leaves them: about
+    70 % valid pairs, keys drawn from a small key space, negative keys,
+    INT32_MIN and valid INT32_MAX keys (which sort among the invalid tail
+    pairs); ``hot``: every key that one value instead."""
+    keys = rng.integers(-2000, 2000, size=(M, C))
+    special = rng.random((M, C))
+    keys[special < 0.02] = -(2**31)
+    keys[(special >= 0.02) & (special < 0.04)] = PAD_KEY
+    keys[(special >= 0.04) & (special < 0.06)] = rng.integers(-(2**31), 2**31 - 1)
+    if hot is not None:
+        keys[:] = hot
+    valid = rng.random((M, C)) < 0.7
+    vals = rng.integers(-(2**31), 2**31 - 1, size=(M, C))
+    keys, vals, valid = (torch.from_numpy(a).cuda() for a in (
+        keys.astype(np.int32), vals.astype(np.int32), valid))
+    _, order = torch.sort(torch.where(valid, keys, PAD_KEY), dim=1, stable=True)
+    return keys.gather(1, order), vals.gather(1, order), valid.gather(1, order)
+
+
+def _assert_shuffle_merge_matches_plain(k, v, p, R, cap, n_rows=None):
+    before = shuffle_merge.launches
+    got = shuffle_merge(k, v, p, R, cap, n_rows)
+    want = lexsort_partition(k, v, p, R, cap, n_rows)
+    torch.cuda.synchronize()
+    assert shuffle_merge.launches == before + 1
+    assert got[0].shape == want[0].shape and got[2].shape == want[2].shape == ()
+    assert got[2].dtype == want[2].dtype == torch.int32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 5, 7, 28, 40])
+@pytest.mark.parametrize("M", [1, 2, 5, 16, 17, 40])
+def test_shuffle_merge_matches_plain(M, R):
+    """Spill-sorted task rows of 9001 slots (three split tiles, the last
+    ragged) at every (M, R): keys, values and ``dropped`` bit for bit."""
+    _needs_card()
+    k, v, p = _spill_sorted_rows(np.random.default_rng(M * 100 + R), M, 9001)
+    _assert_shuffle_merge_matches_plain(k, v, p, R, partition_capacity(M * 9001, R, 4.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,R,factor", [(16, 7, 4.0), (5, 40, 1.0), (17, 5, 0.5), (1, 7, 4.0)])
+def test_shuffle_merge_cuts_a_hot_key_at_capacity(M, R, factor):
+    """One key for every pair: its partition overflows, and the kernel cuts
+    the same pairs as the plain version and counts them."""
+    _needs_card()
+    k, v, p = _spill_sorted_rows(np.random.default_rng(M + R), M, 20_000, hot=-12345)
+    cap = partition_capacity(M * 20_000, R, factor)
+    _, _, dropped = _assert_shuffle_merge_matches_plain(k, v, p, R, cap)
+    assert int(dropped) == int(p.sum()) - cap > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,R,n_rows", [(7, 3, 4), (16, 7, 8), (40, 40, 40)])
+def test_shuffle_merge_on_combined_column_slices(M, R, n_rows):
+    """Rows the combiner leaves: ``local_reduce``'s front-packed rows cut to
+    the combine width, column slices with a row stride wider than the row,
+    which the kernel reads in place; partitions padded to ``n_rows``."""
+    _needs_card()
+    rng = np.random.default_rng(M * R)
+    k, v, p = _spill_sorted_rows(rng, M, 30_000)
+    from repro_torch.mapreduce.backends import get_reduce_backend
+
+    ck, cv, cvalid = combine_rows(get_reduce_backend("cuda"), k, v, p, "sum", 5000)
+    assert ck.stride(0) == 30_000 and not ck.is_contiguous()
+    cap = partition_capacity(ck.numel(), R, 4.0)
+    _assert_shuffle_merge_matches_plain(ck, cv, cvalid, R, cap, n_rows)
+
+
+@pytest.mark.cuda
+def test_shuffle_merge_refuses_what_the_kernel_does_not_take():
+    _needs_card()
+    k = torch.zeros((4, 8), dtype=torch.int32, device="cuda")
+    p = torch.ones((4, 8), dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError, match="int32"):
+        shuffle_merge(k.to(torch.int64), k, p, 3, 16)
+    with pytest.raises(TypeError, match="bool"):
+        shuffle_merge(k, k, p.to(torch.int32), 3, 16)
+    with pytest.raises(ValueError, match="shape"):
+        shuffle_merge(k[None], k[None], p[None], 3, 16)
+    with pytest.raises(ValueError, match="shape"):
+        shuffle_merge(k, k[:, :4], p, 3, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        shuffle_merge(k.t(), k.t(), p.t(), 3, 16)
+    with pytest.raises(ValueError, match="shape"):  # one flat stream
+        shuffle_merge(k.reshape(-1), k.reshape(-1), p.reshape(-1), 3, 16)
+    with pytest.raises(ValueError, match="shape"):
+        get_shuffle_backend("lexsort").partition(
+            JobConfig(4, 3, 1), k.reshape(-1), k.reshape(-1), p.reshape(-1))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        shuffle_merge(k, k.cpu(), p, 3, 16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        shuffle_merge(k.cpu(), k.cpu(), p.cpu(), 3, 16)
+    with pytest.raises(ValueError, match="empty"):
+        shuffle_merge(k[:0], k[:0], p[:0], 3, 16)
+    for R, n_rows in ((0, 3), (1024, 1024), (4, 3)):
+        with pytest.raises(ValueError, match="reducers"):
+            shuffle_merge(k, k, p, R, 16, n_rows)
+    with pytest.raises(ValueError, match="capacity"):
+        shuffle_merge(k, k, p, 3, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("combiner", [False, True])
 def test_cuda_backend_equals_torch_backend(combiner):
@@ -84,7 +194,9 @@ def test_cuda_backend_equals_torch_backend(combiner):
     outs = {}
     for backend in ("cuda", "torch"):
         cfg = JobConfig(7, 3, 2, combiner=combiner, reduce_backend=backend)
+        before = shuffle_merge.launches
         outs[backend] = build_job(wordcount(500), cfg, len(corpus))(corpus)
+        assert shuffle_merge.launches == before + 1  # one a lexsort job
     assert all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["torch"]))
 
 
@@ -102,15 +214,18 @@ def test_pipelined_and_traced_jobs_equal_fused(combiner, M, R, W):
     plan = ExecutionPlan(wordcount(500), cfg, len(corpus))
     fused = plan.fused()(corpus)
     for depth in (1, 2, 3):
-        seg, loc = segment_reduce.launches, local_reduce.launches
+        seg, loc, shuf = segment_reduce.launches, local_reduce.launches, shuffle_merge.launches
         got = plan.pipelined(depth=depth)(corpus)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, fused)), depth
         assert segment_reduce.launches - seg == -(-R // min(W * depth, R))
         assert local_reduce.launches - loc == int(combiner)
+        assert shuffle_merge.launches - shuf == 1
     recorder = PhaseRecorder()
     for depth in (1, 2):
+        shuf = shuffle_merge.launches
         got = plan.traced(recorder, depth=depth)(corpus)
+        assert shuffle_merge.launches - shuf == 1
         assert all(torch.equal(a, b) for a, b in zip(got, fused)), depth
         trace = recorder.last
         assert trace.check_conservation() == []
@@ -666,6 +781,54 @@ def test_every_device_op_of_a_fused_job_lies_in_a_phase_span(combiner):
     assert sum(k.duration for _, e in launched for k in e.kernels) == \
         pytest.approx(device_us, rel=1e-6)
     names = {e.name: e for _, e in launched if e.name.startswith("repro_torch::")}
-    assert set(names) == {"repro_torch::segment_reduce"} | (
+    assert set(names) == {"repro_torch::segment_reduce", "repro_torch::shuffle_merge"} | (
         {"repro_torch::local_reduce"} if combiner else set())
-    assert all(any("reduce" in k.name for k in e.kernels) for e in names.values())
+    # segment_reduce_*, local_reduce_*, shuffle_* kernels under their ranges
+    assert all(any(name.split("::")[1].split("_")[0] in k.name for k in e.kernels)
+               for name, e in names.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", [False, True])
+def test_shuffle_split_and_merge_spans_hold_the_shuffle_device_time(combiner):
+    """On the card a fused lexsort job's shuffle opens
+    ``mapreduce.shuffle.split`` and ``mapreduce.shuffle.merge`` once each,
+    and every device operation launched in the shuffle lies in one of them
+    (the plain version's sort / gather / scatter spans stay shut)."""
+    _needs_card()
+    from torch.autograd import DeviceType
+
+    corpus = torch.from_numpy(wordcount_corpus(1 << 20, vocab_size=4096, seed=3)).cuda()
+    cfg = JobConfig(16, 7, 8, combiner=combiner, reduce_backend="cuda")
+    job = build_job(wordcount(4096), cfg, len(corpus), device="cuda")
+    job(corpus)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        job(corpus)
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = [e.name for e in events if e.name.startswith("mapreduce.shuffle")
+             and e.device_type == DeviceType.CPU]
+    assert sorted(spans) == ["mapreduce.shuffle", "mapreduce.shuffle.merge",
+                             "mapreduce.shuffle.split"]
+    steps = {"mapreduce.shuffle.split": 0.0, "mapreduce.shuffle.merge": 0.0}
+    shuffle_us, seen = 0.0, set()
+    for e in events:
+        if (e.device_type != DeviceType.CPU or not e.kernels or e.id in seen
+                or e.name == "Activity Buffer Request"):
+            continue
+        seen.add(e.id)
+        above, p = [], e.cpu_parent
+        while p is not None:
+            above.append(p.name)
+            p = p.cpu_parent
+        if "mapreduce.shuffle" not in above:
+            continue
+        us = sum(k.duration for k in e.kernels)
+        shuffle_us += us
+        step = [n for n in above if n in steps]
+        assert step, (e.name, above)
+        steps[step[0]] += us
+    assert shuffle_us > 0 and all(us > 0 for us in steps.values())
+    assert sum(steps.values()) == pytest.approx(shuffle_us, rel=1e-9)
