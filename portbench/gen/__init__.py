@@ -6,11 +6,15 @@ configuration's exponent and size.  An Exim mainlog is a flat stream of
 burst of consecutive lines under an id of its own; ids rise with arrival,
 as Exim's, which encode the time, do.  The draws come from a
 ``torch.Generator`` on the device, so one seed gives one corpus on every
-card of one kind, and nothing is made on the host.
+card of one kind.  The one table made on the host is the Zipf law's CDF,
+summed in order by numpy: a scan on the card combines its partial sums in
+whatever order its blocks finish, so its last bits, and the few draws that
+fall between two cards' readings of a boundary, differ from card to card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 RECORD_WIDTH = 3  # [message_id, event_type, size]
@@ -22,17 +26,25 @@ def generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def _zipf_probs(vocab: int, a: float) -> np.ndarray:
+    p = np.arange(1, vocab + 1, dtype=np.float64) ** (-a)
+    return p / p.sum()
+
+
 def zipf_probs(vocab: int, a: float, device) -> torch.Tensor:
     """P(word id i) proportional to (i + 1) ** -a, as float64."""
-    ranks = torch.arange(1, vocab + 1, dtype=torch.float64, device=device)
-    p = ranks ** (-a)
-    return p / p.sum()
+    return torch.from_numpy(_zipf_probs(vocab, a)).to(device)
+
+
+def zipf_cdf(vocab: int, a: float, device) -> torch.Tensor:
+    """The law's CDF, float64, the same bits on every device."""
+    return torch.from_numpy(np.cumsum(_zipf_probs(vocab, a))).to(device)
 
 
 def wordcount(n: int, vocab: int, zipf_a: float, g: torch.Generator,
               device) -> torch.Tensor:
     """(n,) int32 word ids by the inverse CDF of the Zipf law."""
-    cdf = torch.cumsum(zipf_probs(vocab, zipf_a, device), 0)
+    cdf = zipf_cdf(vocab, zipf_a, device)
     out = torch.empty(n, dtype=torch.int32, device=device)
     for lo in range(0, n, CHUNK):
         hi = min(n, lo + CHUNK)

@@ -20,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import gen, profiling
+from portbench import gen, profiling, spans
 from portbench.reference import PAD_KEY, Output, expected, mismatches
 from portbench.spec import HERE, Cell
 
@@ -204,9 +204,24 @@ def metrics_for(cell: Cell, trace: bool) -> list[dict]:
     return [m for m in pool if cell.name in m.get("workloads", [cell.name])]
 
 
+def base_name(name: str) -> str:
+    """A metric's quantity: its name less a ``.w<N>`` suffix, which names
+    the same quantity in cells on N cards, beside other end-to-end
+    metrics."""
+    base, _, suffix = name.rpartition(".")
+    return base if base and suffix[:1] == "w" and suffix[1:].isdigit() else name
+
+
+def reader_path(name: str):
+    """``portbench/metrics/<name>.py``, or where the name has no reader of
+    its own, its quantity's (:func:`base_name`)."""
+    path = HERE / "metrics" / f"{name}.py"
+    return path if path.is_file() else HERE / "metrics" / f"{base_name(name)}.py"
+
+
 def read_layer(name: str, records: dict):
     """``portbench/metrics/<name>.py``'s reading of the traced records."""
-    path = HERE / "metrics" / f"{name}.py"
+    path = reader_path(name)
     spec = importlib.util.spec_from_file_location(
         "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
     module = importlib.util.module_from_spec(spec)
@@ -297,6 +312,7 @@ def trace_extras(cell: Cell, mix, jobs, corpus, device, tokens: int) -> dict:
                 sync(device)
     summary = profiling.summary(fused_box)
     return {
+        **spans.records(fused_box),
         "traces": [t.to_dict() for t in recorder.traces],
         "range_s": profiling.range_device_s(phase_box, names),
         "bytes_per_s": peak_bytes_per_s(device),

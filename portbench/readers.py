@@ -6,7 +6,12 @@ over a traced run's records, which ``harness.trace_extras`` makes: ``enqueue_s``
 seconds inside each ``record_function`` range of the phase runs, over the
 same jobs as ``traces``), ``bytes_per_s`` (the card's published memory
 bandwidth, or None), ``busy_s`` and ``window_s`` (the profiled fused
-jobs).  A reader that finds nothing to read returns None.
+jobs), and the keys of ``spans.records`` over the same profile.  On
+several cards ``ranks.trace_extras`` makes them, without ``range_s`` and
+``bytes_per_s`` and with ``link_bytes_per_s`` (the card's published
+NVLink bandwidth a direction) and ``exchange_bytes`` (the live pairs rank
+0 sends the other ranks in a job, 8 B each).  A reader that finds nothing
+to read returns None.
 """
 
 from __future__ import annotations

@@ -11,7 +11,11 @@ entries, then the values wrapped as the program's int32 sums wrap.  It runs
 on whichever device holds the corpus.
 
 ``expected`` gives the layout the program's ``(R, cap)`` output must have,
-slot for slot; ``mismatches`` counts the slots, and the dropped pairs,
+slot for slot, for the lexsort shuffle or for the all-to-all shuffle's W
+workers (``JobShape.shuffle``, ``JobShape.workers``: each pair packed for
+its reducer's worker under a send capacity, then bucketed there under a
+receive capacity); ``sent_pairs`` gives the pairs each worker sends each
+worker; ``mismatches`` counts the slots, and the dropped pairs,
 that differ from it.  ``wrap(vals, 16)`` gives the same reference's values
 summed in 16-bit integers, as those sums wrap: the control, one precision
 below the int32 sums that the configurations state.
@@ -26,6 +30,7 @@ from portbench.reference.mapreduce import (
     hash_to_reducer,
     mismatches,
     partition_capacity,
+    sent_pairs,
     wrap,
 )
 
@@ -38,5 +43,6 @@ __all__ = [
     "hash_to_reducer",
     "mismatches",
     "partition_capacity",
+    "sent_pairs",
     "wrap",
 ]

@@ -5,7 +5,10 @@
 Run from the root of a checkout on a machine with the cards the cell asks
 for.  The last line of standard output is the result (one JSON object);
 the last lines of standard error are the numbers the check compared,
-each beside its limit.  See ``portbench/README.md``.
+each beside its limit.  A cell on one card runs in this process
+(``harness.run_local``); a cell on more runs one rank process a card
+(``ranks.run_ranks``), and a rank that fails ends the run with no result.
+See ``portbench/README.md``.
 """
 
 import time
@@ -40,8 +43,18 @@ def main(argv=None) -> int:
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    line, log = harness.run_local(cell, args.seed, args.seconds, bool(args.trace),
-                                  T_START)
+    if cell.chips == 1:
+        line, log = harness.run_local(cell, args.seed, args.seconds, bool(args.trace),
+                                      T_START)
+    else:
+        from portbench import ranks
+
+        try:
+            line, log = ranks.run_ranks(cell, args.seed, args.seconds, bool(args.trace),
+                                        T_START)
+        except ranks.RankFailure as err:
+            print(f"portbench: {cell.name}: {err}", file=sys.stderr)
+            return 4
     foreign = harness.foreign_modules()
     if foreign:
         print(f"portbench: modules that may not be loaded are loaded: {foreign}",

@@ -12,6 +12,9 @@ version of the program.
     span_n         instances of each span in the profile
     span_s         device seconds of the operations launched inside each
                    span (at any depth), summed over its instances
+    span_comm_s    device seconds of the operations a collective launched
+                   inside each span, by the collective's host operation
+                   (``c10d::alltoall_base_``, ...): {span: {op: s}}
     span_jobs      ``mapreduce.job`` spans: the jobs profiled
     launches       device operations (kernels, copies, fills) launched
                    from inside ``mapreduce.job`` spans
@@ -40,6 +43,8 @@ SPANS = (
     "mapreduce.shuffle.sort",
     "mapreduce.shuffle.gather",
     "mapreduce.shuffle.scatter",
+    "mapreduce.shuffle.split",
+    "mapreduce.shuffle.merge",
     "mapreduce.shuffle.pack",
     "mapreduce.shuffle.exchange",
     "mapreduce.shuffle.unpack",
@@ -57,7 +62,16 @@ DEVICE_MS = {
     "shuffle.sort_ms": "mapreduce.shuffle.sort",
     "shuffle.gather_ms": "mapreduce.shuffle.gather",
     "shuffle.scatter_ms": "mapreduce.shuffle.scatter",
+    "shuffle.split_ms": "mapreduce.shuffle.split",
+    "shuffle.merge_ms": "mapreduce.shuffle.merge",
+    "shuffle.pack_ms": "mapreduce.shuffle.pack",
+    "shuffle.exchange_ms": "mapreduce.shuffle.exchange",
+    "shuffle.unpack_ms": "mapreduce.shuffle.unpack",
+    "gather.device_ms": "mapreduce.gather",
 }
+#: the prefix of a collective's host operation (``c10d::allgather_``), the
+#: innermost the profiler lists above the launch of its kernels
+COMM_PREFIX = "c10d::"
 METRICS = (*DEVICE_MS, "plan.launches", "device.idle_in_job_pct")
 
 
@@ -75,18 +89,27 @@ def launches_by_span(events) -> list:
     each host operation that launched any.  The profiler lists a launch
     made while it fetched a trace buffer twice, under the operation and
     under an ``Activity Buffer Request`` of the same id: each counts once."""
+    return [(above, kernels) for above, kernels, _ in _launches(events)]
+
+
+def _launches(events) -> list:
+    """:func:`launches_by_span`'s entries, each with the innermost
+    collective's host operation inside the innermost span around the
+    launch, or None."""
     out, seen = [], set()
     for e in events:
         if (e.device_type != DeviceType.CPU or not e.kernels or e.id in seen
                 or e.name == BUFFER_REQUEST):
             continue
         seen.add(e.id)
-        above, p = [], e
+        above, comm, p = [], None, e
         while p is not None:
             if p.name in SPANS:
                 above.append(p.name)
+            elif comm is None and not above and p.name.startswith(COMM_PREFIX):
+                comm = p.name
             p = p.cpu_parent
-        out.append((above, e.kernels))
+        out.append((above, e.kernels, comm))
     return out
 
 
@@ -96,10 +119,15 @@ def records(box) -> dict:
     spans = _host_spans(events)
     jobs = [e for e in spans if e.name == JOB]
     span_us = dict.fromkeys(SPANS, 0.0)
+    comm_us: dict = {}
     launched = 0
-    for above, kernels in launches_by_span(events):
+    for above, kernels, comm in _launches(events):
+        us = sum(k.duration for k in kernels)
         for name in set(above):
-            span_us[name] += sum(k.duration for k in kernels)
+            span_us[name] += us
+        if comm is not None and above:
+            inner = comm_us.setdefault(above[0], {})
+            inner[comm] = inner.get(comm, 0.0) + us
         launched += len(kernels) if JOB in above else 0
     dev = _device_events(events)
     busy = _union((e.time_range.start, e.time_range.end) for e in dev)
@@ -109,6 +137,8 @@ def records(box) -> dict:
     return {
         "span_n": {n: sum(e.name == n for e in spans) for n in SPANS},
         "span_s": {n: us / 1e6 for n, us in span_us.items()},
+        "span_comm_s": {n: {op: us / 1e6 for op, us in ops.items()}
+                        for n, ops in comm_us.items()},
         "span_jobs": len(jobs),
         "launches": launched,
         "device_op_s": sum(e.time_range.elapsed_us() for e in dev) / 1e6,
@@ -117,9 +147,12 @@ def records(box) -> dict:
 
 
 def device_ms(records: dict, span: str):
-    """Device ms a job of the operations launched inside ``span``."""
+    """Device ms a job of the operations launched inside ``span``; None
+    where the profile holds no device operation (no card) or no such
+    span."""
     jobs = records.get("span_jobs")
-    if not jobs or not records.get("span_n", {}).get(span):
+    if (not jobs or not records.get("device_op_s")
+            or not records.get("span_n", {}).get(span)):
         return None
     return 1e3 * records["span_s"][span] / jobs
 

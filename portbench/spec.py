@@ -74,12 +74,11 @@ class Cell:
         return eximparse(self.key_space(tokens))
 
     def shape(self, job: Job, tokens: int) -> JobShape:
-        if job.shuffle_backend != "lexsort":
-            raise ValueError("the reference follows the lexsort shuffle only")
         return JobShape(
             app=self.config["app"], tokens=tokens, mappers=job.mappers,
             reducers=job.reducers, combiner=job.combiner,
             capacity_factor=job.capacity_factor, key_space=self.key_space(tokens),
+            shuffle=job.shuffle_backend, workers=job.workers,
         )
 
 

@@ -118,11 +118,15 @@ def test_a_traced_run_reports_its_layers(name):
     line, _ = harness.run_local(cell, SEED, 0.3, True, time.time(), device="cpu",
                                 tokens=TOKENS)
     assert line["correct"] is True
-    # On the CPU the device metrics (device traces) have nothing to read
-    # and are left out; the host clock's and the program's spans are there.
+    # On the CPU the device metrics (device traces, and the device time
+    # under the program's spans) have nothing to read and are left out;
+    # the host clock's and the traced mode's phase walls are there.
+    from portbench.spans import DEVICE_MS
+
     layer = harness.metrics_for(cell, trace=True)
     assert set(line["metrics"]) == {m["name"] for m in layer
-                                    if m["source"] != "device_trace"}
+                                    if m["source"] != "device_trace"
+                                    and m["name"] not in DEVICE_MS}
     assert {"device_ops", "idle_gaps"} == set(line["breakdown"])
 
 

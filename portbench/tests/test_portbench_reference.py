@@ -12,7 +12,7 @@ from portbench import gen, harness
 from portbench.reference import Output, expected, mismatches
 from portbench.spec import load_cell
 
-CELLS = ["wc-fixed", "wc-combine", "exim-sweep"]
+CELLS = ["wc-fixed", "wc-combine", "exim-sweep", "wc-a2a-w4"]
 SEED = 2**33 + 17
 
 
@@ -93,7 +93,7 @@ def test_the_check_rejects_a_value_cast_to_lower_precision():
     assert mismatches(want, dead) == 1
 
 
-@pytest.mark.parametrize("name", ["wc-fixed", "exim-sweep"])
+@pytest.mark.parametrize("name", ["wc-fixed", "exim-sweep", "wc-a2a-w4"])
 def test_the_control_fails_where_sums_pass_2_to_the_15(name):
     """The reference summed in 16 bits (the control): at 2**20 tokens the
     commonest words' counts pass 2**15, and the keys 0-7 of the Exim splits

@@ -36,7 +36,7 @@ def test_span_names_are_the_programs():
 
     assert spans.SPANS == SPANS
     assert set(spans.DEVICE_MS.values()) <= set(SPANS)
-    assert len(spans.METRICS) == 10
+    assert len(spans.METRICS) == 16
 
 
 @pytest.mark.parametrize("metric,want", [
@@ -50,6 +50,12 @@ def test_span_names_are_the_programs():
     ("map.spill_sort_ms", None),
     ("shuffle.gather_ms", None),
     ("shuffle.scatter_ms", None),
+    ("shuffle.split_ms", None),
+    ("shuffle.merge_ms", None),
+    ("shuffle.pack_ms", None),
+    ("shuffle.exchange_ms", None),
+    ("shuffle.unpack_ms", None),
+    ("gather.device_ms", None),
 ])
 def test_readings_of_made_up_records(metric, want):
     got = spans.read(metric, _records())
@@ -115,11 +121,34 @@ def test_records_of_a_program_that_opens_no_spans(monkeypatch):
 
 def test_a_traced_cpu_run_keeps_its_metrics():
     """A whole ``--trace 1`` run of ``wc-combine`` with the program's spans
-    in its jobs: correct, every metric a CPU run gives, as before."""
+    in its jobs: correct, every metric a CPU run gives, as before; the
+    spans' device times read nothing on the CPU."""
     cell = load_cell("wc-combine")
     line, _ = harness.run_local(cell, SEED, 0.3, True, time.time(), device="cpu",
                                 tokens=TOKENS)
     assert line["correct"] is True
     layer = harness.metrics_for(cell, trace=True)
+    assert {"shuffle.split_ms", "shuffle.merge_ms", "map.spill_sort_ms"} <= \
+        {m["name"] for m in layer}
     assert set(line["metrics"]) == {m["name"] for m in layer
-                                    if m["source"] != "device_trace"}
+                                    if m["source"] != "device_trace"
+                                    and m["name"] not in spans.DEVICE_MS}
+
+
+def test_device_ms_needs_device_operations():
+    """A CPU profile's spans hold no device operation: no device ms."""
+    assert spans.read("map.device_ms", _records(device_op_s=0.0)) is None
+    assert spans.read("map.device_ms", _records()) == pytest.approx(40.0)
+
+
+def test_collectives_are_booked_to_their_innermost_span():
+    """``span_comm_s`` books what a collective launched to the innermost
+    program span around it, under the collective's host operation; the
+    exchange's roofline reads the all-to-all's part of it."""
+    rec = _records(span_comm_s={"mapreduce.shuffle.exchange": {
+        "c10d::alltoall_base_": 0.004, "c10d::allreduce_": 0.002}},
+        exchange_bytes=0.9e9, link_bytes_per_s=4.5e11)
+    rec["span_n"]["mapreduce.shuffle.exchange"] = 4
+    read = harness.read_layer("exchange.nvlink_pct", rec)
+    assert read == pytest.approx(100.0 * 0.9e9 * 4 / 4.5e11 / 0.004)
+    assert harness.read_layer("exchange.nvlink_pct", _records()) is None

@@ -66,6 +66,26 @@ def test_entries_have_just_their_keys():
     assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= 1
 
 
+def test_four_chip_cells_are_at_most_a_quarter():
+    """At most 25 % of the cells, rounded down, ask for four cards; one
+    always may."""
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4)
+    for name in four:
+        c = load_cell(name)
+        assert all(j.workers == 4 and j.shuffle_backend == "all_to_all" for j in c.jobs())
+
+
+def test_every_cells_files_exist():
+    for w in BENCH["workloads"]:
+        assert (HERE / "workloads" / f"{w['name']}.json").is_file()
+        assert (HERE / "configs" / f"{w['config']}.json").is_file()
+        assert (HERE / "traffic" / f"{w['traffic']}.json").is_file()
+    for c in BENCH["configs"]:
+        assert (ROOT / c["file"]).is_file()
+        assert any(w["config"] == c["name"] for w in BENCH["workloads"])
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_are_found_by_name(cell):
     entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
@@ -81,5 +101,5 @@ def test_cell_files_are_found_by_name(cell):
     e2e = {m["name"] for m in harness.metrics_for(c, trace=False)}
     assert layer and "setup_s" in e2e and len(e2e) >= 2
     for m in layer:
-        assert (HERE / "metrics" / f"{m['name']}.py").is_file()
+        assert harness.reader_path(m["name"]).is_file()
         assert harness.read_layer(m["name"], {}) is None
