@@ -13,7 +13,10 @@ Phases, one or more printed lines each, in run order:
 2. kernels: hold each MapReduce kernel against its plain PyTorch version on
    the card, bit for bit, at the main path's shapes and on edge rows
    (all-PAD, one key, a run across many tiles, sums above 2**24), with its
-   time, the plain version's time and its memory bound; the lexsort
+   time, the plain version's time and its memory bound; a reduce wave's
+   ``row_key_sums`` (against ``keys.sum(dim=1)``) and ``segment_reduce``
+   into output rows with an addend at the main path's wave shape, (7,
+   153 391 690), PAD tails on and off tile edges, both timed; the lexsort
    shuffle's ``shuffle_merge`` on one row, rows with no valid pair, a hot
    key cut at capacity, combined column slices and 40 rows into 40
    partitions, then timed at the main path's (16, 2^24) at R = 7;
@@ -33,7 +36,7 @@ Phases, one or more printed lines each, in run order:
    ``"cuda"`` and ``"torch"`` reduce backends at a few (M, R, W): outputs
    bit-identical, results equal to a numpy count of the corpus, and
    WordCount's combiner run equal to the run without it; one
-   ``shuffle_merge`` a job;
+   ``shuffle_merge`` a job, one ``row_key_sums`` a ``"cuda"`` reduce wave;
 5. loop: the paper's profile -> fit -> predict loop per application, 20
    training and 8 held-out (M, R) settings, reduce backend ``"cuda"``;
    then the launch counts of phases 4-5 (the MapReduce main path), which
@@ -256,6 +259,9 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, same sheet
 #: final waves, which the steppers must clamp like the reference
 ENGINE_CONFIGS = ((20, 5, 1), (7, 3, 2), (37, 40, 4))
 PATH_R, PATH_M = 5, 20  # shapes reported in the kernels line
+#: a reduce wave of the main path at the benchmark's size: R = 7
+#: partitions of a 2^28-token job at capacity factor 4, in one wave
+WAVE_ROWS, WAVE_TOKENS = 7, 1 << 28
 
 
 def log(phase: str, msg: str) -> None:
@@ -397,7 +403,7 @@ def phase_kernels() -> dict:
     numbers of the main path's shapes."""
     from repro_torch.kernels.local_reduce import local_reduce, local_reduce_ref
     from repro_torch.kernels.segment_reduce import segment_reduce, segment_reduce_ref
-    from repro_torch.mapreduce.phases import partition_capacity
+    from repro_torch.mapreduce.phases import PAD_KEY, partition_capacity
 
     kernels = {"segment_reduce": (segment_reduce, segment_reduce_ref),
                "local_reduce": (local_reduce, local_reduce_ref)}
@@ -431,20 +437,109 @@ def phase_kernels() -> dict:
                 raise AssertionError(f"{name} differs from its plain version at {(n_rows, n_cols)}")
             errs[name] = max(errs[name], max_abs_err(got, want))
             del got, want
+            if name == "segment_reduce":
+                # As a reduce wave calls it: into rows of larger outputs
+                # that hold garbage, each run's sum plus its row's addend.
+                addend = torch.arange(n_rows, dtype=torch.int32, device="cuda") * 7 - 3
+                ok = torch.full((n_rows + 1, n_cols), -1, dtype=torch.int32, device="cuda")
+                ov = torch.full_like(ok, -1)
+                kern(k, v, out=(ok[1:], ov[1:]), addend=addend)
+                want = ref(k, v, addend)
+                if not (torch.equal(ok[1:], want[0]) and torch.equal(ov[1:], want[1])
+                        and (ok[0] == -1).all() and (ov[0] == -1).all()):
+                    raise AssertionError(f"segment_reduce into output rows with an addend "
+                                         f"differs from its plain version at {(n_rows, n_cols)}")
+                log("kernels", f"segment_reduce {(n_rows, n_cols)} into rows [1, {n_rows + 1}) "
+                    f"with an addend: bit-exact")
+                del ok, ov, want
             ms = device_ms(lambda: kern(k, v))
             plain_ms = device_ms(lambda: ref(k, v), iters=3, warmup=1)
-            bound_ms = n_rows * n_cols * 16 / HBM_BYTES_PER_S * 1e3
+            # Bytes: each live pair read once (segment_reduce skips the PAD
+            # tail; local_reduce's rows are all live), each slot written once.
+            live = int((k != PAD_KEY).sum())
+            bound_ms = (live + n_rows * n_cols) * 8 / HBM_BYTES_PER_S * 1e3
             log("kernels", f"{name} {(n_rows, n_cols)}: bit-exact; kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (16 B/slot at "
-                f"3.35 TB/s), library call: none")
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (8 B a live pair read "
+                f"and a slot written, at 3.35 TB/s), library call: none")
             if i == 0:
                 report[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                 "shape": [n_rows, n_cols]}
             del k, v
     for name in kernels:
         report[name]["max_abs_err"] = errs[name]
+    report["row_key_sums"] = check_wave_shape()
     report["shuffle_merge"] = check_shuffle_merge()
     return report
+
+
+def check_wave_shape() -> dict:
+    """A reduce wave's two kernels at the main path's wave shape, bit for
+    bit: ``row_key_sums`` against ``keys.sum(dim=1)``, and one
+    ``segment_reduce`` into rows of larger outputs with an addend against
+    its plain version row by row; then both timed there.  The rows' PAD
+    tails start on a tile edge, inside a tile, at slot 0 (all PAD), at
+    slot 1, nowhere (no PAD), at the last slot, and at a quarter of the row
+    (a partition at capacity factor 4); keys over 200 000 values spread
+    across the int32 range, so that the sums need 64 bits.  Returns the
+    kernels-line numbers of ``row_key_sums``."""
+    from repro_torch.kernels.segment_reduce import (
+        row_key_sums,
+        segment_reduce,
+        segment_reduce_ref,
+    )
+    from repro_torch.mapreduce.phases import PAD_KEY, partition_capacity
+
+    tile = 4096
+    cap = partition_capacity(WAVE_TOKENS, WAVE_ROWS, 4.0)
+    quarter = cap // 4
+    fills = [quarter // tile * tile, quarter // tile * tile + 1234, 0, 1, cap, cap - 1,
+             quarter]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    keys = torch.full((WAVE_ROWS, cap), PAD_KEY, dtype=torch.int32, device="cuda")
+    for r, live in enumerate(fills):
+        drawn = torch.randint(0, 200_000, (live,), generator=g, device="cuda",
+                              dtype=torch.int32)
+        keys[r, :live] = torch.sort(drawn).values * 10_007 - 2**30
+    vals = torch.randint(200, 4000, (WAVE_ROWS, cap), generator=g, device="cuda",
+                         dtype=torch.int32)
+    shape = (WAVE_ROWS, cap)
+    if not torch.equal(row_key_sums(keys), keys.sum(dim=1)):
+        raise AssertionError(f"row_key_sums differs from keys.sum(dim=1) at {shape}")
+    log("kernels", f"row_key_sums {shape}, PAD tails from slots {fills}: equal to "
+        "keys.sum(dim=1) bit for bit")
+
+    addend = torch.arange(WAVE_ROWS, dtype=torch.int32, device="cuda") * 7 - 3
+    ok = torch.full((WAVE_ROWS + 1, cap), -1, dtype=torch.int32, device="cuda")
+    ov = torch.full_like(ok, -1)
+    out = (ok[1:], ov[1:])
+    segment_reduce(keys, vals, out=out, addend=addend)
+    for r in range(WAVE_ROWS):
+        want = segment_reduce_ref(keys[r:r + 1], vals[r:r + 1], addend[r:r + 1])
+        if not (torch.equal(ok[1 + r], want[0][0]) and torch.equal(ov[1 + r], want[1][0])):
+            raise AssertionError(f"segment_reduce into output rows with an addend differs "
+                                 f"from its plain version in row {r} at {shape}")
+        del want
+    if not ((ok[0] == -1).all() and (ov[0] == -1).all()):
+        raise AssertionError(f"segment_reduce wrote outside its output rows at {shape}")
+    log("kernels", f"segment_reduce {shape} into rows [1, {WAVE_ROWS + 1}) with an addend: "
+        "bit-exact, the row before untouched")
+
+    live = sum(fills)
+    sums_ms = device_ms(lambda: row_key_sums(keys))
+    plain_ms = device_ms(lambda: keys.sum(dim=1), iters=3, warmup=1)
+    # row_key_sums reads each live key once (and a word of each PAD-led tile).
+    sums_bound = live * 4 / HBM_BYTES_PER_S * 1e3
+    seg_ms = device_ms(lambda: segment_reduce(keys, vals, out=out, addend=addend))
+    seg_bound = (live + WAVE_ROWS * cap) * 8 / HBM_BYTES_PER_S * 1e3
+    log("kernels", f"row_key_sums {shape}, {live} live keys: kernel {sums_ms:.4f} ms, "
+        f"keys.sum(dim=1) {plain_ms:.4f} ms, bound {sums_bound:.4f} ms (4 B a live key "
+        f"read, at 3.35 TB/s), library call: none")
+    log("kernels", f"segment_reduce {shape} as a wave calls it: kernel {seg_ms:.4f} ms, "
+        f"bound {seg_bound:.4f} ms (8 B a live pair read and a slot written, at 3.35 TB/s)")
+    del keys, vals, ok, ov, out
+    torch.cuda.empty_cache()
+    return {"ms": sums_ms, "plain_ms": plain_ms, "bound_ms": sums_bound,
+            "shape": list(shape), "max_abs_err": 0}
 
 
 def spill_sorted_rows(M: int, C: int, *, valid: float, seed: int, hot: int | None = None):
@@ -563,12 +658,14 @@ def check_results(tag: str, got: dict, want: dict, dropped: int, name: str) -> s
 def phase_engine(apps: dict, expect: dict) -> dict:
     """Full-size jobs, "cuda" against "torch"; returns the segment_reduce
     launches the "cuda" jobs must have made and the lexsort jobs run, each
-    one shuffle_merge launch."""
+    one shuffle_merge launch.  Checks the "cuda" jobs' row_key_sums
+    launches, counted from zero here: one a reduce wave."""
     from repro_torch.kernels.local_reduce import local_reduce
-    from repro_torch.kernels.segment_reduce import segment_reduce
+    from repro_torch.kernels.segment_reduce import row_key_sums, segment_reduce
     from repro_torch.kernels.shuffle_merge import shuffle_merge
     from repro_torch.mapreduce import JobConfig, build_job, collect_results
 
+    row_key_sums.launches = 0
     waves = 0
     combines = 0
     shuffles = shuffle_merge.launches
@@ -620,10 +717,12 @@ def phase_engine(apps: dict, expect: dict) -> dict:
     # One shuffle_merge a lexsort job: both backends twice at each setting,
     # and WordCount's two combiner-comparison jobs.
     jobs = 4 * len(ENGINE_CONFIGS) * len(apps) + 2
-    if segment_reduce.launches != waves or local_reduce.launches != combines or \
-            shuffle_merge.launches - shuffles != jobs:
+    # One segment_reduce and one row_key_sums a "cuda" reduce wave.
+    if segment_reduce.launches != waves or row_key_sums.launches != waves or \
+            local_reduce.launches != combines or shuffle_merge.launches - shuffles != jobs:
         raise AssertionError(
             f"engine launches segment_reduce={segment_reduce.launches} (want {waves}), "
+            f"row_key_sums={row_key_sums.launches} (want {waves}), "
             f"local_reduce={local_reduce.launches} (want {combines}), "
             f"shuffle_merge={shuffle_merge.launches - shuffles} (want {jobs})")
     log("engine", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -3936,7 +4035,7 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (fails outside the repository)
     from repro_torch.kernels.local_reduce import local_reduce
-    from repro_torch.kernels.segment_reduce import segment_reduce
+    from repro_torch.kernels.segment_reduce import row_key_sums, segment_reduce
     from repro_torch.kernels.shuffle_merge import shuffle_merge
     from repro_torch.runner import make_app
 
@@ -3964,15 +4063,19 @@ def main() -> int:
     segment_reduce.launches = 0
     local_reduce.launches = 0
     shuffle_merge.launches = 0
-    engine, loop = phase_engine(apps, expect), phase_loop(apps)
+    engine = phase_engine(apps, expect)
+    key_sums = row_key_sums.launches  # phase_engine's, checked there
+    loop = phase_loop(apps)
     want = {name: engine[name] + loop[name] for name in engine}
     launches = {"segment_reduce": segment_reduce.launches,
                 "local_reduce": local_reduce.launches,
                 "shuffle_merge": shuffle_merge.launches}
     if {name: launches[name] for name in want} != want or launches["local_reduce"] < 1:
         raise AssertionError(f"main path launches {launches}, want {want}")
+    launches["row_key_sums"] = key_sums
     log("launches", f"main path: segment_reduce {launches['segment_reduce']} "
-        f"(one per reduce wave), local_reduce {launches['local_reduce']} (one per combiner "
+        f"(one per reduce wave), row_key_sums {key_sums} (one per reduce wave of the engine "
+        f"jobs), local_reduce {launches['local_reduce']} (one per combiner "
         f"job), shuffle_merge {launches['shuffle_merge']} (one per lexsort job)")
     phase_breakdown(apps)
 
@@ -4066,6 +4169,8 @@ def main() -> int:
 
     sources = {"segment_reduce": ("src/repro_torch/csrc/segment_reduce.cu",
                                   "src/repro/kernels/segment_reduce/kernel.py:28"),
+               "row_key_sums": ("src/repro_torch/csrc/segment_reduce.cu",
+                                "none: k.sum() in src/repro/mapreduce/phases.py:_masked_setup"),
                "local_reduce": ("src/repro_torch/csrc/local_reduce.cu",
                                 "src/repro/kernels/local_reduce/kernel.py:36"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",

@@ -8,9 +8,10 @@
 //
 // Within a tile, each slot is classified (head of a run, last slot of its
 // run inside the tile) and a block-wide segmented inclusive scan gives
-// every run's partial sum at its last in-tile slot.  Runs that cross a
-// tile edge are finished with integer atomics, which are exact and
-// order-free, so the result does not depend on block scheduling.
+// every run's partial sum at its last in-tile slot.  Each kernel finishes
+// the runs that cross a tile edge its own way, exactly and independently
+// of block scheduling (local_reduce with integer atomics, segment_reduce
+// by reading the later tiles' published partial sums).
 
 #pragma once
 
@@ -89,20 +90,6 @@ __device__ __forceinline__ void classify(const int (&k)[kItems], const int* row,
     whole[j] = live && key != nx;
     flush[j] = whole[j] || (live && last_thread && j == kItems - 1);
   }
-}
-
-// First index in row[0, n) whose key is >= key (the row is sorted).
-__device__ __forceinline__ int lower_bound(const int* row, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = lo + (hi - lo) / 2;
-    if (row[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
 }
 
 }  // namespace sorted_runs

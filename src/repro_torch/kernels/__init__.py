@@ -6,7 +6,9 @@ PyTorch version, which the wrapper takes for CPU tensors and the tests and
 ``chip_smoke.py`` hold the kernel against).  The CUDA sources live in
 ``src/repro_torch/csrc/`` and ``_build.py`` compiles them at first use.
 
-* ``segment_reduce`` replaces ``repro/kernels/segment_reduce`` (Pallas);
+* ``segment_reduce`` replaces ``repro/kernels/segment_reduce`` (Pallas),
+  writing a reduce wave's rows straight into the outputs; beside it
+  ``row_key_sums``, the wave's per-task key sums from the live prefixes;
 * ``local_reduce``   replaces ``repro/kernels/local_reduce`` (Pallas);
 * ``flash_attention`` replaces ``repro/kernels/flash_attention`` (Pallas);
 * ``decode_attention`` replaces ``repro/kernels/decode_attention`` (Pallas);

@@ -99,8 +99,13 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.segment_reduce_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    i64 = ctypes.c_longlong
+    lib.segment_reduce_scratch.argtypes = [i32, i32]
+    lib.segment_reduce_scratch.restype = i64
+    lib.segment_reduce_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.segment_reduce_launch.restype = i32
+    lib.row_key_sums_launch.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.row_key_sums_launch.restype = i32
     lib.local_reduce_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, ptr]
     lib.local_reduce_launch.restype = i32
     lib.local_reduce_tiles.argtypes = [i32]
@@ -116,7 +121,6 @@ def load() -> ctypes.CDLL:
     lib.wkv6_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                 i32, i32, i32, i32, ptr]
     lib.wkv6_launch.restype = i32
-    i64 = ctypes.c_longlong
     lib.shuffle_merge_scratch.argtypes = [i32, i32, i32]
     lib.shuffle_merge_scratch.restype = i64
     lib.shuffle_merge_max_reducers.argtypes = []

@@ -19,20 +19,27 @@ def run_heads_and_ids(keys: torch.Tensor):
     return valid, first, torch.where(valid, seg, C - 1)
 
 
-def segment_reduce_ref(keys: torch.Tensor, values: torch.Tensor):
-    """keys/values (N, C) int32 (or (C,)), rows sorted, PAD_KEY = invalid.
+def segment_reduce_ref(keys: torch.Tensor, values: torch.Tensor,
+                       addend: torch.Tensor | None = None):
+    """keys/values (N, C) int32 (or (C,)), rows sorted, PAD_KEY = invalid;
+    addend: optional (N,) int32 (a scalar for (C,)).
 
-    Returns (out_keys, out_vals): each run's sum at its first occurrence,
-    (PAD_KEY, 0) elsewhere.  Head flags, ``cumsum`` run ids, ``index_add_``.
+    Returns (out_keys, out_vals): each run's sum, plus its row's addend, at
+    its first occurrence, (PAD_KEY, 0) elsewhere.  Head flags, ``cumsum``
+    run ids, ``index_add_``.
     """
     if keys.dim() == 1:
-        ok, ov = segment_reduce_ref(keys[None], values[None])
+        ok, ov = segment_reduce_ref(
+            keys[None], values[None], None if addend is None else addend.reshape(1))
         return ok[0], ov[0]
     N, C = keys.shape
     valid, first, seg = run_heads_and_ids(keys)
     flat = (seg + torch.arange(N, device=keys.device)[:, None] * C).reshape(-1)
     agg = torch.zeros(N * C, dtype=values.dtype, device=keys.device)
     agg.index_add_(0, flat, torch.where(valid, values, 0).reshape(-1))
+    sums = agg[flat].reshape(N, C)
+    if addend is not None:
+        sums = sums + addend.to(values.dtype)[:, None]
     out_keys = torch.where(first, keys, PAD_KEY)
-    out_vals = torch.where(first, agg[flat].reshape(N, C), 0)
+    out_vals = torch.where(first, sums, 0)
     return out_keys, out_vals

@@ -41,10 +41,15 @@ from repro_torch.mapreduce.spans import span
 class ReduceBackend:
     """Per-partition sorted segment aggregation.
 
-    ``reduce(keys, values, reduce_op)`` takes (N, C) int32 blocks, each row
-    sorted by key with PAD_KEY padding, and returns (out_keys, out_vals)
-    of the same shape: each equal-key run's aggregate at its first
-    occurrence, (PAD_KEY, 0) elsewhere.
+    ``reduce(keys, values, reduce_op, addend=None, out=None)`` takes (N, C)
+    int32 blocks, each row sorted by key with PAD_KEY padding, and returns
+    (out_keys, out_vals) of the same shape: each equal-key run's aggregate
+    at its first occurrence, plus its row's entry of the optional (N,)
+    int32 ``addend``, and (PAD_KEY, 0) elsewhere.  ``out``, an optional
+    pair of (N, C) int32 tensors, receives the results and is returned: a
+    reduce wave passes its rows of the reduce outputs.  ``key_sums`` gives
+    each row's exact int64 key sum, PAD tail included, which seeds a reduce
+    task's startup.
 
     ``combine`` is the map-side variant: the same aggregates, front-packed
     in ascending key order with a (PAD_KEY, 0) tail.  The default sorts the
@@ -55,13 +60,28 @@ class ReduceBackend:
     name: str = "abstract"
     supported_ops: tuple[str, ...] = ()
 
-    def reduce(self, keys, values, reduce_op: str):
+    def reduce(self, keys, values, reduce_op: str, addend=None, out=None):
         raise NotImplementedError
+
+    def key_sums(self, keys):
+        return keys.sum(dim=1)
 
     def combine(self, keys, values, reduce_op: str):
         ok, ov = self.reduce(keys, values, reduce_op)
         ok, order = torch.sort(ok, dim=1, stable=True)  # PAD_KEY sorts last
         return ok, ov.gather(1, order)
+
+
+def _finish(out_keys, out_vals, addend, out):
+    """A reduce's aggregates with the addend on their live slots, written
+    into ``out`` when it is given."""
+    if addend is not None:
+        out_vals = out_vals + torch.where(out_keys != PAD_KEY, addend[:, None], 0)
+    if out is None:
+        return out_keys, out_vals
+    out[0].copy_(out_keys)
+    out[1].copy_(out_vals)
+    return tuple(out)
 
 
 class TorchReduceBackend(ReduceBackend):
@@ -70,11 +90,11 @@ class TorchReduceBackend(ReduceBackend):
     name = "torch"
     supported_ops = ("sum", "max", "first")
 
-    def reduce(self, keys, values, reduce_op: str):
+    def reduce(self, keys, values, reduce_op: str, addend=None, out=None):
         ok, ov, _ = phases.segment_sum_sorted(
             keys, values, keys != PAD_KEY, reduce_op
         )
-        return ok, ov
+        return _finish(ok, ov, addend, out)
 
 
 class ScatterReduceBackend(ReduceBackend):
@@ -83,7 +103,7 @@ class ScatterReduceBackend(ReduceBackend):
     name = "scatter_reduce"
     supported_ops = ("sum", "max", "first")
 
-    def reduce(self, keys, values, reduce_op: str):
+    def reduce(self, keys, values, reduce_op: str, addend=None, out=None):
         valid = keys != PAD_KEY
         first = phases.run_heads(keys, valid)
         seg = phases.segment_ids(first, valid)
@@ -100,12 +120,13 @@ class ScatterReduceBackend(ReduceBackend):
         agg = torch.full_like(values, fill).scatter_reduce(1, seg, src, how)
         out_k = torch.where(first, keys, PAD_KEY)
         out_v = torch.where(first, agg.gather(1, seg), 0)
-        return out_k, out_v
+        return _finish(out_k, out_v, addend, out)
 
 
 class CudaReduceBackend(ReduceBackend):
-    """The hand-written Hopper kernels: ``segment_reduce`` for the reduce
-    waves and ``local_reduce`` for the combine barrier.
+    """The hand-written Hopper kernels: ``segment_reduce`` (and its
+    ``row_key_sums``) for the reduce waves and ``local_reduce`` for the
+    combine barrier.
 
     On a CPU tensor each kernel's wrapper runs its plain PyTorch version;
     on a CUDA tensor it launches the kernel or raises.
@@ -121,11 +142,16 @@ class CudaReduceBackend(ReduceBackend):
                 f"got {reduce_op!r}"
             )
 
-    def reduce(self, keys, values, reduce_op: str):
+    def reduce(self, keys, values, reduce_op: str, addend=None, out=None):
         self._check(reduce_op)
         from repro_torch.kernels.segment_reduce import segment_reduce
 
-        return segment_reduce(keys, values)
+        return segment_reduce(keys, values, out=out, addend=addend)
+
+    def key_sums(self, keys):
+        from repro_torch.kernels.segment_reduce import row_key_sums
+
+        return row_key_sums(keys)
 
     def combine(self, keys, values, reduce_op: str):
         self._check(reduce_op)

@@ -8,6 +8,7 @@
 * :func:`combine_rows`       — map-side combine of spill-sorted task rows;
 * :func:`bucket_scatter`     — capacity-bounded partition scatter that
   counts its overflow in ``dropped``;
+* :func:`reduce_wave`        — a wave of reduce tasks into its output rows;
 * :func:`reduce_local`       — one worker's reduce slots, one at a time.
 
 Every function works on a batch of tasks written out as the leading
@@ -216,26 +217,32 @@ def bucket_scatter(ids, n_buckets, n_rows, cap, arrays, fills):
     return outs, dropped
 
 
-def _masked_setup(cfg, keys_block, out_keys, out_vals):
-    """Per-task startup for a reduce block, added only to live output slots.
+def reduce_wave(cfg, backend, reduce_op, keys, values, out_keys, out_vals):
+    """One wave of n reduce tasks, reduced straight into their output rows.
 
-    keys_block: (N, cap); out_keys/out_vals: backend output (N, cap).
+    keys/values: the wave's (n, cap) partition rows, each key-sorted with a
+    PAD_KEY tail; out_keys/out_vals: the (n, cap) rows of the reduce
+    outputs it fills.  Each task's startup (:func:`task_setup`) is seeded
+    by its row's exact int64 key sum, PAD tail included (the backend's
+    ``key_sums``), and its int32 value (0) is the ``addend`` of the
+    backend's one :meth:`~repro_torch.mapreduce.backends.ReduceBackend.reduce`
+    call, which writes the rows.
     """
-    setup = task_setup(cfg.setup_dim, cfg.setup_rounds, keys_block.sum(dim=1))
-    live = out_keys != PAD_KEY
-    return out_vals + torch.where(live, setup[:, None], 0.0).to(out_vals.dtype)
+    setup = task_setup(cfg.setup_dim, cfg.setup_rounds, backend.key_sums(keys))
+    backend.reduce(keys, values, reduce_op, addend=setup.to(torch.int32),
+                   out=(out_keys, out_vals))
 
 
 def reduce_local(app, cfg, part_keys, part_vals, backend):
     """One worker's reduce slots run one at a time, as a worker runs its
-    waves: one backend call per slot.
+    waves: one wave of one task a slot.
 
     part_keys/part_vals: (slots, cap).  Returns out_keys/out_vals of the
     same shape.
     """
-    outs = []
-    for i, (k, v) in enumerate(zip(part_keys, part_vals)):
+    out_keys, out_vals = torch.empty_like(part_keys), torch.empty_like(part_vals)
+    for i in range(part_keys.shape[0]):
         with span("mapreduce.reduce.wave", i):
-            ok, ov = backend.reduce(k[None], v[None], app.reduce_op)
-            outs.append((ok[0], _masked_setup(cfg, k[None], ok, ov)[0]))
-    return tuple(torch.stack(x) for x in zip(*outs))
+            reduce_wave(cfg, backend, app.reduce_op, part_keys[i:i + 1],
+                        part_vals[i:i + 1], out_keys[i:i + 1], out_vals[i:i + 1])
+    return out_keys, out_vals

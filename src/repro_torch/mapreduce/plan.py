@@ -15,15 +15,16 @@ into wave steppers over task-major buffers:
   of a real W-worker run (its pack and unpack halves over a worker axis,
   the collective replaced by the block transpose it implements);
 * ``reduce_step(W)(pk, pv, ok, ov, start)`` → the ``(R, cap)`` outputs with
-  one wave of W reduce tasks written in.
+  one wave of W reduce tasks reduced straight into their rows.
 
 Every mode derives from them:
 
 * :meth:`fused`     — the whole pipeline as one call;
-* :meth:`pipelined` — map and reduce waves software-pipelined at overlap
-  depth D: waves grouped D at a time into blocks of ``W·D`` tasks, group
-  g's compute issued after group g-1's commit (prologue / steady state /
-  epilogue), bit-exact against fused by construction;
+* :meth:`pipelined` — map and reduce waves grouped D at a time (overlap
+  depth D) into blocks of ``W·D`` tasks; map group g's compute issued
+  after group g-1's commit (prologue / steady state / epilogue), each
+  reduce group written into its output rows in turn; bit-exact against
+  fused by construction;
 * :meth:`traced`    — the phases fenced one by one (``torch.cuda.
   synchronize`` on the card) and wall-clocked, with counters read from
   the phase outputs, feeding a :class:`repro_torch.telemetry.PhaseRecorder`;
@@ -42,11 +43,12 @@ modes start from uninitialised accumulators, whose every row a wave
 writes before anything reads it; the buffers a resumable job can observe
 between steps (:meth:`initial_map_buffers`, the shuffle stepper's output
 buffers) hold PAD_KEY / 0 / False, as the reference's do.  A final
-partial wave (or wave group) clamps its window back onto rows already
+partial map wave (or wave group) clamps its window back onto rows already
 done, as ``dynamic_slice_in_dim`` does, and rewrites them with identical
-values.
-On one CUDA stream the pipelined mode runs commit g-1 and compute g in
-order; its gain in the reference comes from XLA overlapping the two.
+values; a reduce wave covers only the tasks that exist, since its rows'
+values do not depend on the rows around them.
+On one CUDA stream the pipelined mode runs map commit g-1 and compute g
+in order; its gain in the reference comes from XLA overlapping the two.
 """
 
 from __future__ import annotations
@@ -276,33 +278,6 @@ class ExecutionPlan:
 
         return commit
 
-    def _reduce_compute_fn(self, W: int):
-        cfg, R, op = self.cfg, self.R, self.app.reduce_op
-        backend = self.reduce_backend
-        pad = max(0, W - R)
-
-        def compute(pk, pv, start):
-            s = _window(start, R + pad, W)
-            kblk = _pad_rows(pk, pad, PAD_KEY)[s:s + W]
-            vblk = _pad_rows(pv, pad, 0)[s:s + W]
-            ok, ov = backend.reduce(kblk, vblk, op)
-            return ok, phases._masked_setup(cfg, kblk, ok, ov)
-
-        return compute
-
-    def _reduce_commit_fn(self, W: int):
-        R = self.R
-        pad = max(0, W - R)
-
-        def commit(bufs, blk, start):
-            s = _window(start, R + pad, W)
-            n = min(W, R - s)
-            for buf, b in zip(bufs, blk):
-                buf[s:s + n] = b[:n]
-            return bufs
-
-        return commit
-
     def _map_step_fn(self, W: int):
         """Map wave stepper: the W tasks at ``start`` (clamped) computed and
         written into the (M, P) accumulators."""
@@ -397,33 +372,37 @@ class ExecutionPlan:
         return step
 
     def _reduce_step_fn(self, W: int):
-        """Reduce wave stepper, the same clamped window as the map stepper:
-        reduce backends are row-independent, so a shifted final wave
-        rewrites identical rows."""
-        compute, commit = self._reduce_compute_fn(W), self._reduce_commit_fn(W)
+        """Reduce wave stepper: the tasks [start, start + W) that exist,
+        reduced straight into their rows of the output buffers (one
+        backend call; no padding row, no window shifted back onto rows
+        already done, no copy)."""
+        cfg, R, op = self.cfg, self.R, self.app.reduce_op
+        backend = self.reduce_backend
 
         def step(pk, pv, ok_buf, ov_buf, start):
-            return commit((ok_buf, ov_buf), compute(pk, pv, start), start)
+            rows = slice(start, min(start + W, R))
+            phases.reduce_wave(cfg, backend, op, pk[rows], pv[rows],
+                               ok_buf[rows], ov_buf[rows])
+            return ok_buf, ov_buf
 
         return step
 
     @staticmethod
-    def _software_pipeline(compute, commit, groups: int, stride: int,
-                           init_bufs, wave: str):
-        """Prologue / steady state / epilogue over ``groups`` wave groups.
+    def _software_pipeline(compute, commit, groups: int, stride: int, init_bufs):
+        """Prologue / steady state / epilogue over ``groups`` map wave groups.
 
         Iteration g of the steady state commits group g-1's block and
         computes group g's; the commit order (0, 1, ..., G-1) and every
         clamped window are the serial loop's, so the outputs are bit-exact.
-        The prologue and each iteration lie in a ``wave`` span.
+        The prologue and each iteration lie in a ``mapreduce.map.wave`` span.
         """
 
         def run(*inputs):
             bufs = init_bufs()
-            with span(wave, 0):
+            with span("mapreduce.map.wave", 0):
                 blk = compute(*inputs, 0)
             for g in range(1, groups):
-                with span(wave, g):
+                with span("mapreduce.map.wave", g):
                     bufs = commit(bufs, blk, (g - 1) * stride)
                     blk = compute(*inputs, g * stride)
             return commit(bufs, blk, (groups - 1) * stride)
@@ -439,11 +418,8 @@ class ExecutionPlan:
         prep = self._prep_fn()
         map_step = self._map_step_fn(W)
         shuffle_step = self._partition_fn(W if self.shuffle.collective else 1)
-        reduce_step = self._reduce_step_fn(W)
         map_waves = math.ceil(self.M / W)
-        red_waves = math.ceil(self.R / W)
         init_map = self.initial_map_buffers
-        init_red = self.initial_reduce_buffers
 
         def phase_map(tokens):
             with span("mapreduce.map"):
@@ -454,27 +430,36 @@ class ExecutionPlan:
                         bufs = map_step(splits, valid, *bufs, i * W)
                 return bufs
 
-        def phase_reduce(pk, pv):
-            with span("mapreduce.reduce"):
-                bufs = init_red(pk.shape[1], fill=False)
-                for i in range(red_waves):
-                    with span("mapreduce.reduce.wave", i):
-                        bufs = reduce_step(pk, pv, *bufs, i * W)
-                return bufs
-
         fns = {"map": phase_map}
         if self.combiner:
             fns["combine"] = _spanned("mapreduce.combine", self._combine_step_fn())
         fns["shuffle"] = _spanned("mapreduce.shuffle", shuffle_step)
-        fns["reduce"] = phase_reduce
+        fns["reduce"] = self._reduce_phase_fn(W)
         return fns
+
+    def _reduce_phase_fn(self, W: int):
+        """The reduce phase: its waves of W tasks one after another, each
+        written into the output rows by :meth:`_reduce_step_fn`."""
+        reduce_step = self._reduce_step_fn(W)
+        waves = math.ceil(self.R / W)
+        init_red = self.initial_reduce_buffers
+
+        def phase_reduce(pk, pv):
+            with span("mapreduce.reduce"):
+                bufs = init_red(pk.shape[1], fill=False)
+                for i in range(waves):
+                    with span("mapreduce.reduce.wave", i):
+                        bufs = reduce_step(pk, pv, *bufs, i * W)
+                return bufs
+
+        return phase_reduce
 
     def pipelined_phase_fns(self, workers: int | None = None,
                             depth: int | None = None) -> dict:
-        """The phase functions with map and reduce waves software-pipelined
-        at overlap depth D: waves grouped D at a time into blocks of
-        ``min(W·D, M)`` (or R) tasks.  The shuffle is the barrier between
-        the two pipelines and is the serial mode's.  ``depth=1`` is
+        """The phase functions with map and reduce waves grouped D at a
+        time (overlap depth D) into blocks of ``min(W·D, M)`` (or R) tasks,
+        the map groups software-pipelined.  The shuffle is the barrier
+        between the two phases and is the serial mode's.  ``depth=1`` is
         :meth:`phase_fns`."""
         W = self.cfg.num_workers if workers is None else int(workers)
         D = self.cfg.overlap_depth if depth is None else int(depth)
@@ -483,30 +468,16 @@ class ExecutionPlan:
         if D == 1:
             return self.phase_fns(W)
         Weff_m = min(W * D, self.M)
-        Weff_r = min(W * D, self.R)
         prep = self._prep_fn()
         map_pipe = self._software_pipeline(
             self._map_compute_fn(Weff_m), self._map_commit_fn(Weff_m),
             math.ceil(self.M / Weff_m), Weff_m,
-            lambda: self.initial_map_buffers(fill=False), "mapreduce.map.wave",
+            lambda: self.initial_map_buffers(fill=False),
         )
-        red_compute = self._reduce_compute_fn(Weff_r)
-        red_commit = self._reduce_commit_fn(Weff_r)
-        groups_r = math.ceil(self.R / Weff_r)
-        init_red = self.initial_reduce_buffers
 
         def phase_map(tokens):
             with span("mapreduce.map"):
                 return map_pipe(*prep(tokens))
-
-        def phase_reduce(pk, pv):
-            with span("mapreduce.reduce"):
-                pipe = self._software_pipeline(
-                    red_compute, red_commit, groups_r, Weff_r,
-                    lambda: init_red(pk.shape[1], fill=False),
-                    "mapreduce.reduce.wave",
-                )
-                return pipe(pk, pv)
 
         fns = {"map": phase_map}
         if self.combiner:
@@ -516,7 +487,9 @@ class ExecutionPlan:
         fns["shuffle"] = _spanned(
             "mapreduce.shuffle",
             self._partition_fn(W if self.shuffle.collective else 1))
-        fns["reduce"] = phase_reduce
+        # A reduce wave group writes its output rows itself: there is no
+        # commit to overlap, so the groups of W·D tasks run one by one.
+        fns["reduce"] = self._reduce_phase_fn(W * D)
         return fns
 
     # ---------------------------------------------- steppers (per grant)
@@ -838,7 +811,13 @@ class ExecutionPlan:
                     if combiner:
                         k, v, pv = w_combine(k, v, pv)
                     bk, bv, dropped = w_shuffle(k, v, pv)
-                    return finish(*w_reduce(bk, bv), dropped)
+                    # Each stage's inputs die before the next allocates:
+                    # the output gather is the job's peak, near a card's
+                    # capacity at 2^29 tokens on four ranks.
+                    del k, v, pv
+                    ok, ov = w_reduce(bk, bv)
+                    del bk, bv
+                    return finish(ok, ov, dropped)
 
             return job
 
@@ -876,8 +855,10 @@ class ExecutionPlan:
             pairs_out = global_sum(int((bk != PAD_KEY).sum().item()))
             return (bk, bv, dropped), per_worker, pairs_out
 
-        def reduce_finished(bk, bv, dropped):
-            return finish(*w_reduce(bk, bv), dropped)
+        def reduce_finished(parts, dropped):
+            ok, ov = w_reduce(*parts)
+            parts.clear()  # the partitions die before the gather allocates
+            return finish(ok, ov, dropped)
 
         def run(tokens, trace):
             t_job = time.perf_counter()
@@ -907,6 +888,8 @@ class ExecutionPlan:
 
             ((bk, bv, dropped), per_worker, pairs_out), dt, cpu = fenced(
                 shuffle_counted, k, v, pv)
+            del k, v, pv
+            cap = int(bk.shape[-1])
             n_dropped = int(per_worker.sum())
             trace.record_phase(
                 "shuffle", dt,
@@ -916,7 +899,7 @@ class ExecutionPlan:
                 bytes_out=pairs_out * pair_bytes,
                 bytes_dropped=n_dropped * pair_bytes,
                 partitions=R, workers=W,
-                partition_capacity=int(bk.shape[-1]),
+                partition_capacity=cap,
                 dropped_send=int(per_worker[:, 0].sum()),
                 dropped_recv=int(per_worker[:, 1].sum()),
                 cpu_s=cpu, cpu_workers=_NCPU,
@@ -924,12 +907,14 @@ class ExecutionPlan:
                 net_s=dt,
             )
 
-            out, dt, cpu = fenced(reduce_finished, bk, bv, dropped)
+            parts = [bk, bv]
+            del bk, bv
+            out, dt, cpu = fenced(reduce_finished, parts, dropped)
             trace.record_phase(
                 "reduce", dt,
                 tasks=R, waves=waves_r, workers=W,
                 segments_out=int((out[0] != PAD_KEY).sum().item()),
-                segment_slots=W * waves_r * int(bk.shape[-1]),
+                segment_slots=W * waves_r * cap,
                 cpu_s=cpu, cpu_workers=_NCPU,
             )
             trace.finish(time.perf_counter() - t_job)

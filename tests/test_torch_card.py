@@ -17,6 +17,7 @@ from repro_torch.kernels.local_reduce import local_reduce, local_reduce_ref
 from repro_torch.kernels.rwkv6 import wkv6, wkv6_chunked_ref
 from repro_torch.kernels.segment_reduce import (
     PAD_KEY,
+    row_key_sums,
     segment_reduce,
     segment_reduce_ref,
 )
@@ -78,6 +79,113 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         segment_reduce(k, k.to(torch.int64))
     with pytest.raises(ValueError, match="contiguous"):
         local_reduce(k.t(), k.t())
+
+
+def _wave_rows(C):
+    """Seven (7, C) sorted, PAD_KEY-tailed rows, one of each edge the
+    kernel's tiles meet: random runs over a quarter-live row, an all-PAD
+    row, a row with no PAD (runs of about C / 10 slots, across many tiles),
+    one key filling the row (a run ending at the row's last slot), runs
+    ending on 4096-slot tile edges, values near the int32 limits (sums that
+    wrap), and a row of runs of 1000 with no PAD."""
+    rng = np.random.default_rng(C)
+    keys = np.full((7, C), PAD_KEY, dtype=np.int64)
+    vals = rng.integers(1, 4000, size=(7, C))
+    live = C // 4
+    keys[0, :live] = np.sort(rng.integers(-5000, 5000, size=live))
+    keys[2] = np.sort(rng.integers(0, 10, size=C))
+    keys[3] = 42
+    keys[4, :C // 2] = np.arange(C // 2) // 4096
+    keys[5, :live] = np.sort(rng.integers(0, 50, size=live))
+    vals[5] = rng.integers(2**31 - 2**20, 2**31 - 1, size=C)
+    keys[6] = np.arange(C) // 1000
+    return (torch.from_numpy(keys.astype(np.int32)).cuda(),
+            torch.from_numpy(vals.astype(np.int32)).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1 << 22, 9001])
+def test_segment_reduce_writes_output_rows_with_an_addend(C):
+    """The kernel as a reduce wave calls it: one launch writes rows [s, s + 7)
+    of larger (12, C) outputs holding garbage, each run's sum plus its row's
+    addend (sums that wrap included) at its head, bit for bit as the plain
+    version; the rows around them keep their contents."""
+    _needs_card()
+    k, v = _wave_rows(C)
+    addend = torch.tensor([0, 5, -7, 2**31 - 1, -(2**31), 123456, 1], dtype=torch.int32,
+                          device="cuda")
+    want = segment_reduce_ref(k, v, addend)
+    ok = torch.full((12, C), -1, dtype=torch.int32, device="cuda")
+    ov = torch.full((12, C), -3, dtype=torch.int32, device="cuda")
+    before = segment_reduce.launches
+    got = segment_reduce(k, v, out=(ok[3:10], ov[3:10]), addend=addend)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + 1
+    assert got[0].data_ptr() == ok[3:10].data_ptr()
+    assert torch.equal(ok[3:10], want[0]) and torch.equal(ov[3:10], want[1])
+    assert (ok[:3] == -1).all() and (ok[10:] == -1).all()
+    assert (ov[:3] == -3).all() and (ov[10:] == -3).all()
+    # no addend: the plain reduce, into the same rows again
+    segment_reduce(k, v, out=(ok[3:10], ov[3:10]))
+    want = segment_reduce_ref(k, v)
+    assert torch.equal(ok[3:10], want[0]) and torch.equal(ov[3:10], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1 << 22, 9001, 4096, 4097, 1])
+def test_row_key_sums_equal_the_full_row_sum(C):
+    """The wave's key sums, read from the live prefix only, equal
+    ``keys.sum(dim=1)`` over the whole rows: an all-PAD row, rows with no
+    PAD, a PAD tail starting on a tile edge and inside a tile; 7 rows and
+    40 (fewer blocks a row)."""
+    _needs_card()
+    k, _ = _wave_rows(C)
+    before = row_key_sums.launches
+    assert torch.equal(row_key_sums(k), k.sum(dim=1))
+    assert row_key_sums.launches == before + 1
+    many = k.repeat(6, 1)[:40].clone()
+    for r in range(0, 40, 3):  # tails from tile edges and from inside tiles
+        many[r, min(C, 4096 * (r // 3)) + r % 2:] = PAD_KEY
+        many[r] = torch.sort(many[r]).values
+    assert torch.equal(row_key_sums(many), many.sum(dim=1))
+
+
+@pytest.mark.cuda
+def test_segment_reduce_refuses_outputs_and_addends_it_cannot_take():
+    _needs_card()
+    k = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="out must be"):
+        segment_reduce(k, k, out=(torch.empty((3, 8), dtype=torch.int32, device="cuda"),) * 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_reduce(k, k, out=(torch.empty((8, 2), dtype=torch.int32, device="cuda").t(),) * 2)
+    with pytest.raises(ValueError, match="addend"):
+        segment_reduce(k, k, addend=torch.zeros(3, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="addend"):
+        segment_reduce(k, k, addend=torch.zeros(2, dtype=torch.int64, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combiner", [False, True])
+@pytest.mark.parametrize("app", ["wordcount", "exim"])
+def test_job_on_card_equals_cpu(app, combiner):
+    """A (16, 7, 8) job, reduce backend ``cuda``, on the card and on the CPU
+    (the kernels' plain versions): the same outputs bit for bit, one
+    ``segment_reduce`` and one ``row_key_sums`` launch for its one reduce
+    wave."""
+    _needs_card()
+    from repro_torch.mapreduce import eximparse, exim_mainlog
+
+    if app == "wordcount":
+        mr, corpus = wordcount(5000), wordcount_corpus(400_000, 5000, zipf_a=1.0, seed=5)
+    else:
+        mr, corpus = eximparse(4096), exim_mainlog(400_002, 4096, seed=5)
+    cfg = JobConfig(16, 7, 8, combiner=combiner, reduce_backend="cuda")
+    want = build_job(mr, cfg, len(corpus), device="cpu")(torch.from_numpy(corpus))
+    seg, sums = segment_reduce.launches, row_key_sums.launches
+    got = build_job(mr, cfg, len(corpus), device="cuda")(torch.from_numpy(corpus).cuda())
+    torch.cuda.synchronize()
+    assert (segment_reduce.launches - seg, row_key_sums.launches - sums) == (1, 1)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
 
 
 def _spill_sorted_rows(rng, M, C, hot=None):
@@ -746,9 +854,10 @@ def test_sharded_prefill_on_nccl_world1_equals_unsharded(tmp_path):
 @pytest.mark.parametrize("combiner", [False, True])
 def test_every_device_op_of_a_fused_job_lies_in_a_phase_span(combiner):
     """Under ``torch.profiler`` every device operation of a fused job,
-    the ctypes-launched ``segment_reduce`` / ``local_reduce`` included
-    (``_build.launch_range``), is launched inside one of the job's phase
-    spans, and the kernels sit under their ``repro_torch::<name>`` ranges."""
+    the ctypes-launched ``segment_reduce`` / ``row_key_sums`` /
+    ``local_reduce`` included (``_build.launch_range``), is launched inside
+    one of the job's phase spans, and the kernels sit under their
+    ``repro_torch::<name>`` ranges."""
     _needs_card()
     from torch.autograd import DeviceType
 
@@ -781,9 +890,11 @@ def test_every_device_op_of_a_fused_job_lies_in_a_phase_span(combiner):
     assert sum(k.duration for _, e in launched for k in e.kernels) == \
         pytest.approx(device_us, rel=1e-6)
     names = {e.name: e for _, e in launched if e.name.startswith("repro_torch::")}
-    assert set(names) == {"repro_torch::segment_reduce", "repro_torch::shuffle_merge"} | (
+    assert set(names) == {"repro_torch::segment_reduce", "repro_torch::row_key_sums",
+                          "repro_torch::shuffle_merge"} | (
         {"repro_torch::local_reduce"} if combiner else set())
-    # segment_reduce_*, local_reduce_*, shuffle_* kernels under their ranges
+    # segment_reduce_*, row_key_sums_*, local_reduce_*, shuffle_* kernels
+    # under their ranges
     assert all(any(name.split("::")[1].split("_")[0] in k.name for k in e.kernels)
                for name, e in names.items())
 

@@ -130,9 +130,9 @@ class _CountingBackend(port_backends.CudaReduceBackend):
     def __init__(self):
         self.reduces = self.combines = 0
 
-    def reduce(self, keys, values, reduce_op):
+    def reduce(self, keys, values, reduce_op, addend=None, out=None):
         self.reduces += 1
-        return super().reduce(keys, values, reduce_op)
+        return super().reduce(keys, values, reduce_op, addend, out)
 
     def combine(self, keys, values, reduce_op):
         self.combines += 1
