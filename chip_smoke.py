@@ -19,7 +19,12 @@ Phases, one or more printed lines each, in run order:
    153 391 690), PAD tails on and off tile edges, both timed; the lexsort
    shuffle's ``shuffle_merge`` on one row, rows with no valid pair, a hot
    key cut at capacity, combined column slices and 40 rows into 40
-   partitions, then timed at the main path's (16, 2^24) at R = 7;
+   partitions, then timed at the main path's (16, 2^24) at R = 7; the
+   map's ``spill_sort`` on WordCount-like (8, 2^24) rows, Exim-like rows
+   with their two-thirds PAD tail and the sharded map's (1, 2^24) rows,
+   bit for bit at every slot against its plain version, its pass counter
+   against the digits that vary among the live keys, timed beside the
+   plain version, ``torch.sort`` + three gathers and the 18 B-a-pair bound;
 3. attention: the two attention kernels against their plain versions on
    the card at the qwen3-0.6b serving shapes, gemma-7b's head_dim 256
    shapes (decode over a ragged kv_len split into 64-key tiles, the
@@ -36,7 +41,8 @@ Phases, one or more printed lines each, in run order:
    ``"cuda"`` and ``"torch"`` reduce backends at a few (M, R, W): outputs
    bit-identical, results equal to a numpy count of the corpus, and
    WordCount's combiner run equal to the run without it; one
-   ``shuffle_merge`` a job, one ``row_key_sums`` a ``"cuda"`` reduce wave;
+   ``shuffle_merge`` a job, one ``row_key_sums`` a ``"cuda"`` reduce wave,
+   one ``spill_sort`` a map wave;
 5. loop: the paper's profile -> fit -> predict loop per application, 20
    training and 8 held-out (M, R) settings, reduce backend ``"cuda"``;
    then the launch counts of phases 4-5 (the MapReduce main path), which
@@ -469,6 +475,7 @@ def phase_kernels() -> dict:
         report[name]["max_abs_err"] = errs[name]
     report["row_key_sums"] = check_wave_shape()
     report["shuffle_merge"] = check_shuffle_merge()
+    report["spill_sort"] = check_spill_sort()
     return report
 
 
@@ -609,6 +616,95 @@ def check_shuffle_merge() -> dict:
             "max_abs_err": 0}
 
 
+def varying_digits(keys, pvalid, bits: int) -> int:
+    """The ``bits``-bit digits that vary among each row's live keys (taken
+    as key ^ 0x80000000), summed over the rows: the spill sort's passes."""
+    from repro_torch.mapreduce.phases import PAD_KEY
+
+    live = pvalid & (keys != PAD_KEY)
+    u = (keys.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000
+    total = 0
+    for d in range(-(-32 // bits)):
+        digit = (u >> (d * bits)) & ((1 << bits) - 1)
+        lo = torch.where(live, digit, 1 << bits).min(dim=1).values
+        hi = torch.where(live, digit, -1).max(dim=1).values
+        total += int((live.any(dim=1) & (lo != hi)).sum())
+    return total
+
+
+def check_spill_sort() -> dict:
+    """The map's spill sort against its plain version (``torch.sort`` of the
+    masked keys, three gathers, the addend) at every slot, dead slots
+    included, into fresh outputs and into rows of larger buffers, with its
+    pass counter, then timed: WordCount-like (8, 2^24) rows (Zipf keys over
+    1.4e6 words, all valid), Exim-like (8, 2^28 / 40) rows (a third records
+    with ids under 2^25, then a dead PAD tail) and the sharded map's
+    (1, 2^24).  Bound: each pair's 9 B read and written once, at 3.35 TB/s;
+    ``library_ms``: ``torch.sort`` + three gathers, which the port never
+    calls on the card."""
+    from repro_torch.kernels.spill_sort import spill_sort
+    from repro_torch.kernels.spill_sort.ops import DIGIT_BITS
+    from repro_torch.mapreduce.phases import PAD_KEY, spill_sort_plain
+
+    def wordcount_rows(g, N, C):
+        keys = (1.4e6 ** torch.rand((N, C), generator=g, device="cuda")).to(torch.int32)
+        return keys, torch.ones_like(keys), torch.ones_like(keys, dtype=torch.bool)
+
+    def exim_rows(g, N, C):
+        n_rec = C // 3
+        keys = torch.full((N, C), PAD_KEY, dtype=torch.int32, device="cuda")
+        vals = torch.zeros((N, C), dtype=torch.int32, device="cuda")
+        live = torch.zeros((N, C), dtype=torch.bool, device="cuda")
+        keys[:, :n_rec] = torch.randint(0, 2**25, (N, n_rec), generator=g, device="cuda",
+                                        dtype=torch.int32)
+        vals[:, :n_rec] = torch.randint(200, 40000, (N, n_rec), generator=g, device="cuda",
+                                        dtype=torch.int32)
+        live[:, :n_rec] = True
+        return keys, vals, live
+
+    def library(k, v, p):
+        _, order = torch.sort(torch.where(p, k, PAD_KEY), dim=1, stable=True)
+        return k.gather(1, order), v.gather(1, order), p.gather(1, order)
+
+    report = {}
+    for case, make, (N, C) in (("wordcount", wordcount_rows, (8, 1 << 24)),
+                               ("exim", exim_rows, (8, (1 << 28) // 40)),
+                               ("sharded", wordcount_rows, (1, 1 << 24))):
+        g = torch.Generator(device="cuda").manual_seed(N * C)
+        k, v, p = make(g, N, C)
+        addend = torch.arange(N, dtype=torch.int32, device="cuda") - 1
+        passes = torch.zeros((), dtype=torch.int32, device="cuda")
+        launches = spill_sort.launches
+        got = spill_sort(k, v, p, addend, passes=passes)
+        want = spill_sort_plain(k, v, p, addend)
+        torch.cuda.synchronize()
+        if spill_sort.launches != launches + 1 or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"spill_sort differs from its plain version on {case} {(N, C)}")
+        want_passes = varying_digits(k, p, DIGIT_BITS)
+        if int(passes) != want_passes:
+            raise AssertionError(f"spill_sort on {case}: {int(passes)} passes, want {want_passes}")
+        bufs = tuple(torch.full((N + 1, C), -1, dtype=t.dtype, device="cuda") for t in want)
+        spill_sort(k, v, p, addend, out=tuple(b[1:] for b in bufs))
+        if not all(torch.equal(b[1:], w) and torch.equal(b[0], torch.full_like(b[0], -1))
+                   for b, w in zip(bufs, want)):
+            raise AssertionError(f"spill_sort into output rows differs on {case} {(N, C)}")
+        del got, want, bufs
+        ms = device_ms(lambda: spill_sort(k, v, p, addend))
+        plain_ms = device_ms(lambda: spill_sort_plain(k, v, p, addend), iters=3, warmup=1)
+        library_ms = device_ms(lambda: library(k, v, p), iters=3, warmup=1)
+        bound_ms = N * C * 18 / HBM_BYTES_PER_S * 1e3
+        log("kernels", f"spill_sort {case} {(N, C)}: bit-exact, {int(passes)} passes of "
+            f"{DIGIT_BITS}-bit digits; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(torch.sort + three gathers) {library_ms:.4f} ms, bound {bound_ms:.4f} ms (9 B a "
+            f"pair read and written once, at 3.35 TB/s), {100 * bound_ms / ms:.1f} % of it")
+        if case == "wordcount":
+            report = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "shape": [N, C], "max_abs_err": 0}
+        del k, v, p
+    return report
+
+
 def exim_expected(corpus: np.ndarray, M: int) -> tuple[dict, int]:
     """Per-transaction byte sums as the engine parses them, and the number
     of records (the pairs the map emits): each of the M splits holds whole
@@ -663,12 +759,15 @@ def phase_engine(apps: dict, expect: dict) -> dict:
     from repro_torch.kernels.local_reduce import local_reduce
     from repro_torch.kernels.segment_reduce import row_key_sums, segment_reduce
     from repro_torch.kernels.shuffle_merge import shuffle_merge
+    from repro_torch.kernels.spill_sort import spill_sort
     from repro_torch.mapreduce import JobConfig, build_job, collect_results
 
     row_key_sums.launches = 0
     waves = 0
+    map_waves = 0
     combines = 0
     shuffles = shuffle_merge.launches
+    spills = spill_sort.launches
     for name, (app, corpus) in apps.items():
         for M, R, W in ENGINE_CONFIGS:
             outs, times = {}, {}
@@ -683,6 +782,7 @@ def phase_engine(apps: dict, expect: dict) -> dict:
                 times[backend] = time.perf_counter() - t0
                 if backend == "cuda":
                     waves += 2 * cfg.reduce_waves
+                map_waves += 2 * cfg.map_waves
             if not all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["torch"])):
                 raise AssertionError(f"{name} {(M, R, W)}: cuda and torch outputs differ")
             ok, ov, dropped = outs["cuda"]
@@ -706,6 +806,7 @@ def phase_engine(apps: dict, expect: dict) -> dict:
         combined = build_job(app, JobConfig(M, R, W, reduce_backend="cuda", combiner=True),
                              len(corpus), device="cuda")(corpus)
         waves += 2 * math.ceil(R / W)
+        map_waves += 2 * math.ceil(M / W)
         combines += 1
         a, b = live_pairs(*plain[:2]), live_pairs(*combined[:2])
         if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
@@ -718,15 +819,18 @@ def phase_engine(apps: dict, expect: dict) -> dict:
     # and WordCount's two combiner-comparison jobs.
     jobs = 4 * len(ENGINE_CONFIGS) * len(apps) + 2
     # One segment_reduce and one row_key_sums a "cuda" reduce wave.
+    # One spill_sort a map wave.
     if segment_reduce.launches != waves or row_key_sums.launches != waves or \
-            local_reduce.launches != combines or shuffle_merge.launches - shuffles != jobs:
+            local_reduce.launches != combines or shuffle_merge.launches - shuffles != jobs \
+            or spill_sort.launches - spills != map_waves:
         raise AssertionError(
             f"engine launches segment_reduce={segment_reduce.launches} (want {waves}), "
             f"row_key_sums={row_key_sums.launches} (want {waves}), "
             f"local_reduce={local_reduce.launches} (want {combines}), "
-            f"shuffle_merge={shuffle_merge.launches - shuffles} (want {jobs})")
+            f"shuffle_merge={shuffle_merge.launches - shuffles} (want {jobs}), "
+            f"spill_sort={spill_sort.launches - spills} (want {map_waves})")
     log("engine", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {"segment_reduce": waves, "shuffle_merge": jobs}
+    return {"segment_reduce": waves, "shuffle_merge": jobs, "map_waves": map_waves}
 
 
 def phase_loop(apps: dict) -> dict:
@@ -4037,6 +4141,7 @@ def main() -> int:
     from repro_torch.kernels.local_reduce import local_reduce
     from repro_torch.kernels.segment_reduce import row_key_sums, segment_reduce
     from repro_torch.kernels.shuffle_merge import shuffle_merge
+    from repro_torch.kernels.spill_sort import spill_sort
     from repro_torch.runner import make_app
 
     t_start = time.perf_counter()
@@ -4063,20 +4168,26 @@ def main() -> int:
     segment_reduce.launches = 0
     local_reduce.launches = 0
     shuffle_merge.launches = 0
+    spill_sort.launches = 0
     engine = phase_engine(apps, expect)
     key_sums = row_key_sums.launches  # phase_engine's, checked there
     loop = phase_loop(apps)
-    want = {name: engine[name] + loop[name] for name in engine}
+    if spill_sort.launches <= engine["map_waves"]:
+        raise AssertionError(f"the loop's jobs launched no spill_sort ({spill_sort.launches} "
+                             f"in all, {engine['map_waves']} of them the engine phase's)")
+    want = {name: engine[name] + loop[name] for name in loop}
     launches = {"segment_reduce": segment_reduce.launches,
                 "local_reduce": local_reduce.launches,
                 "shuffle_merge": shuffle_merge.launches}
     if {name: launches[name] for name in want} != want or launches["local_reduce"] < 1:
         raise AssertionError(f"main path launches {launches}, want {want}")
     launches["row_key_sums"] = key_sums
+    launches["spill_sort"] = spill_sort.launches
     log("launches", f"main path: segment_reduce {launches['segment_reduce']} "
         f"(one per reduce wave), row_key_sums {key_sums} (one per reduce wave of the engine "
         f"jobs), local_reduce {launches['local_reduce']} (one per combiner "
-        f"job), shuffle_merge {launches['shuffle_merge']} (one per lexsort job)")
+        f"job), shuffle_merge {launches['shuffle_merge']} (one per lexsort job), spill_sort "
+        f"{launches['spill_sort']} (one per map wave)")
     phase_breakdown(apps)
 
     # The traced and pipelined modes, the all-to-all shuffle and the
@@ -4179,7 +4290,9 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention/kernel.py:31"),
                "wkv6": ("src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/rwkv6/kernel.py:30"),
                "shuffle_merge": ("src/repro_torch/csrc/shuffle_merge.cu",
-                                 "none: jnp.lexsort in src/repro/mapreduce/backends.py")}
+                                 "none: jnp.lexsort in src/repro/mapreduce/backends.py"),
+               "spill_sort": ("src/repro_torch/csrc/spill_sort.cu",
+                              "none: jnp.argsort + gathers in src/repro/mapreduce/phases.py:129")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": report[name]["max_abs_err"],

@@ -129,6 +129,11 @@ def load() -> ctypes.CDLL:
         stage.argtypes = [ptr, i64, ptr, i64, ptr, i64, i32, i32, i32, i32, i32, ptr, ptr,
                           ptr, ptr, ptr]
         stage.restype = i32
+    lib.spill_sort_scratch.argtypes = [i32, i32]
+    lib.spill_sort_scratch.restype = i64
+    lib.spill_sort_launch.argtypes = [ptr, i64, ptr, i64, ptr, i64, i32, i32, ptr, ptr, i64,
+                                      ptr, i64, ptr, i64, ptr, ptr, ptr]
+    lib.spill_sort_launch.restype = i32
     lib.kernel_error_string.argtypes = [i32]
     lib.kernel_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,7 +3,8 @@
 * :func:`task_setup`         — fixed per-task startup compute (JVM analogue);
 * :func:`hash_to_reducer`    — Knuth multiplicative key hashing in uint32;
 * :func:`segment_sum_sorted` — sorted equal-key aggregation (sum/max/first);
-* :func:`run_map_task`       — setup + ``map_fn`` + local spill sort;
+* :func:`run_map_task`       — setup + ``map_fn`` + local spill sort
+  (the ``spill_sort`` kernel on the card, :func:`spill_sort_plain` else);
 * :func:`map_phase`          — map tasks over a (waves, W) task grid;
 * :func:`combine_rows`       — map-side combine of spill-sorted task rows;
 * :func:`bucket_scatter`     — capacity-bounded partition scatter that
@@ -22,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.spill_sort import spill_sort
 from repro_torch.mapreduce.spans import span
 
 PAD_KEY = 2**31 - 1  # int32 max: sorts to the end
@@ -119,23 +121,45 @@ def segment_sum_sorted(keys, values, valid, reduce_op: str = "sum"):
     return out_keys, out_vals, first
 
 
-def run_map_task(app, cfg, tokens, valid):
+def spill_sort_plain(keys, values, pvalid, addend, out=None):
+    """The map's local spill sort in plain PyTorch, the ``spill_sort``
+    kernel's contract: (N, C) rows sorted stably by their masked key
+    (PAD_KEY where not valid), which ``first`` relies on, as
+    ``jnp.argsort`` does; keys, values and pvalid gathered through the
+    order, and ``addend`` (N,) int32 added to every value.  ``out``, an
+    optional (keys, values, pvalid) triple of the rows' shape, receives
+    the result and is returned."""
+    _, order = torch.sort(
+        torch.where(pvalid, keys, PAD_KEY), dim=1, stable=True
+    )
+    keys = keys.gather(1, order)
+    values = values.gather(1, order)
+    pvalid = pvalid.gather(1, order)
+    values = values + addend[:, None]
+    if out is None:
+        return keys, values, pvalid
+    for o, x in zip(out, (keys, values, pvalid)):
+        o.copy_(x)
+    return tuple(out)
+
+
+def run_map_task(app, cfg, tokens, valid, out=None, sort_passes=None):
     """A batch of map tasks: startup + ``map_fn`` + local spill sort.
 
-    tokens/valid: (W, S).  Returns keys/values/pvalid of shape (W, P).
+    tokens/valid: (W, S).  Returns keys/values/pvalid of shape (W, P), in
+    ``out`` when given (rows of the map's accumulators).  Each task's
+    startup value (0 as an int32) is added to its values by the sort.  On
+    the card the sort is the ``spill_sort`` kernel, which adds the radix
+    passes it ran to ``sort_passes`` (an int32 device scalar) when given;
+    CPU and meta tensors take :func:`spill_sort_plain`.
     """
     setup = task_setup(cfg.setup_dim, cfg.setup_rounds, tokens.sum(dim=1))
     keys, values, pvalid = app.map_fn(tokens, valid)
-    # Local spill sort; stable like jnp.argsort, which ``first`` relies on.
+    addend = setup.to(torch.int32)  # keep setup live
     with span("mapreduce.map.spill_sort"):
-        _, order = torch.sort(
-            torch.where(pvalid, keys, PAD_KEY), dim=1, stable=True
-        )
-        keys = keys.gather(1, order)
-        values = values.gather(1, order)
-        pvalid = pvalid.gather(1, order)
-    values = values + setup.to(values.dtype)[:, None]  # keep setup live
-    return keys, values, pvalid
+        if keys.device.type == "cuda":
+            return spill_sort(keys, values, pvalid, addend, out, sort_passes)
+        return spill_sort_plain(keys, values, pvalid, addend, out)
 
 
 def map_phase(app, cfg, splits, split_valid):

@@ -253,38 +253,43 @@ class ExecutionPlan:
     # the start to the same window, so the split changes the schedule,
     # never the values.
 
-    def _map_compute_fn(self, W: int):
+    def _map_compute_fn(self, W: int, sort_passes=None):
         app, cfg, M = self.app, self.cfg, self.M
-        pad = max(0, W - M)
+        W = min(W, M)
 
         def compute(splits, svalid, start):
-            s = _window(start, M + pad, W)
-            tok = _pad_rows(splits, pad, 0)[s:s + W]
-            val = _pad_rows(svalid, pad, False)[s:s + W]
-            return run_map_task(app, cfg, tok, val)
+            s = _window(start, M, W)
+            return run_map_task(app, cfg, splits[s:s + W], svalid[s:s + W],
+                                sort_passes=sort_passes)
 
         return compute
 
     def _map_commit_fn(self, W: int):
         M = self.M
-        pad = max(0, W - M)
+        W = min(W, M)
 
         def commit(bufs, blk, start):
-            s = _window(start, M + pad, W)
-            n = min(W, M - s)
+            s = _window(start, M, W)
             for buf, b in zip(bufs, blk):
-                buf[s:s + n] = b[:n]
+                buf[s:s + W] = b
             return bufs
 
         return commit
 
-    def _map_step_fn(self, W: int):
-        """Map wave stepper: the W tasks at ``start`` (clamped) computed and
-        written into the (M, P) accumulators."""
-        compute, commit = self._map_compute_fn(W), self._map_commit_fn(W)
+    def _map_step_fn(self, W: int, sort_passes=None):
+        """Map wave stepper: the min(W, M) tasks at ``start`` (clamped)
+        computed, their spill sort writing straight into their rows of the
+        (M, P) accumulators.  ``sort_passes``: see
+        :func:`~repro_torch.mapreduce.phases.run_map_task`."""
+        app, cfg, M = self.app, self.cfg, self.M
+        W = min(W, M)
 
         def step(splits, svalid, bk, bv, bp, start):
-            return commit((bk, bv, bp), compute(splits, svalid, start), start)
+            s = _window(start, M, W)
+            rows = slice(s, s + W)
+            run_map_task(app, cfg, splits[rows], svalid[rows],
+                         out=(bk[rows], bv[rows], bp[rows]), sort_passes=sort_passes)
+            return bk, bv, bp
 
         return step
 
@@ -411,12 +416,13 @@ class ExecutionPlan:
 
     # ------------------------------------------------- phase compositions
 
-    def phase_fns(self, workers: int | None = None) -> dict:
+    def phase_fns(self, workers: int | None = None, sort_passes=None) -> dict:
         """The pipeline as phase functions at one grant: a wave loop each
-        for map and reduce, plus the combine and shuffle barriers."""
+        for map and reduce, plus the combine and shuffle barriers.
+        ``sort_passes``: see :func:`~repro_torch.mapreduce.phases.run_map_task`."""
         W = self.cfg.num_workers if workers is None else int(workers)
         prep = self._prep_fn()
-        map_step = self._map_step_fn(W)
+        map_step = self._map_step_fn(W, sort_passes)
         shuffle_step = self._partition_fn(W if self.shuffle.collective else 1)
         map_waves = math.ceil(self.M / W)
         init_map = self.initial_map_buffers
@@ -455,7 +461,7 @@ class ExecutionPlan:
         return phase_reduce
 
     def pipelined_phase_fns(self, workers: int | None = None,
-                            depth: int | None = None) -> dict:
+                            depth: int | None = None, sort_passes=None) -> dict:
         """The phase functions with map and reduce waves grouped D at a
         time (overlap depth D) into blocks of ``min(W·D, M)`` (or R) tasks,
         the map groups software-pipelined.  The shuffle is the barrier
@@ -466,11 +472,11 @@ class ExecutionPlan:
         if D < 1:
             raise ValueError(f"overlap depth must be >= 1, got {D}")
         if D == 1:
-            return self.phase_fns(W)
+            return self.phase_fns(W, sort_passes)
         Weff_m = min(W * D, self.M)
         prep = self._prep_fn()
         map_pipe = self._software_pipeline(
-            self._map_compute_fn(Weff_m), self._map_commit_fn(Weff_m),
+            self._map_compute_fn(Weff_m, sort_passes), self._map_commit_fn(Weff_m),
             math.ceil(self.M / Weff_m), Weff_m,
             lambda: self.initial_map_buffers(fill=False),
         )
@@ -599,10 +605,13 @@ class ExecutionPlan:
         the fenced phases) with ``overlap_depth`` / ``overlap_s``.
         """
         D = self.cfg.overlap_depth if depth is None else int(depth)
-        fns = self.pipelined_phase_fns(workers, D)
+        app, cfg, dev = self.app, self.cfg, self.device
+        # The spill sort kernel's radix passes, summed over the map's task
+        # rows (the card only; the plain sort on the CPU counts none).
+        passes = torch.zeros((), dtype=torch.int32, device=dev) if dev.type == "cuda" else None
+        fns = self.pipelined_phase_fns(workers, D, sort_passes=passes)
         m = self.meta(workers)
         pair_bytes = phases.PAIR_BYTES
-        app, cfg, dev = self.app, self.cfg, self.device
         args = self._span_args(workers)
 
         fenced = functools.partial(_fenced, dev)
@@ -621,13 +630,17 @@ class ExecutionPlan:
         def run(tokens, trace):
             t_job = time.perf_counter()
 
+            if passes is not None:
+                passes.zero_()
             (bk, bv, bp), dt, cpu = fenced(fns["map"], tokens)
             pairs_emitted = int(bp.sum().item())
+            sorted_by = {} if passes is None else {"sort_passes": int(passes.item())}
             trace.record_phase(
                 "map", dt,
                 tasks=m["mappers"], waves=m["map_waves"],
                 records_in=m["input_len"],
                 pairs_emitted=pairs_emitted, pairs_capacity=m["n_pairs"],
+                **sorted_by,
                 cpu_s=cpu, cpu_workers=_NCPU,
             )
 
